@@ -1,0 +1,12 @@
+from rangeldm_tpu_torch.geometry.sensors import (  # noqa: F401
+    SensorSpec, get_spec, kitti360_spec, nuscenes_spec,
+)
+from rangeldm_tpu_torch.geometry.projection import (  # noqa: F401
+    decode_range, encode_range,
+)
+from rangeldm_tpu_torch.geometry.inverse import (  # noqa: F401
+    to_point_cloud, to_point_cloud_masked,
+)
+from rangeldm_tpu_torch.geometry.voxelize import (  # noqa: F401
+    splat_points_to_volumes, to_voxel,
+)

@@ -1,0 +1,283 @@
+"""Sampling CLI and pipeline loading (ldm/inference.py).
+
+    python -m rangeldm_tpu_torch.sample_ldm --pipeline <diffusers dir> \
+        --samples 1000 --batch_size 32 --out samples/ [--device cuda]
+
+Writes per sample `{i}.bin` (the point cloud, depth < 90 m,
+ldm/inference.py:173-177), `{i}_bev.png` (BEV density) and `{i}_range.png`
+(the range channel). Runs on CUDA unless `--device cpu` is given; without a
+CUDA device and without that flag it stops with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import struct
+import sys
+import zlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from rangeldm_tpu_torch.convert import (
+    WEIGHT_FILES, load_diffusers_unet, load_diffusers_vae,
+)
+from rangeldm_tpu_torch.diffusion.schedule import Schedule, ScheduleConfig
+from rangeldm_tpu_torch.geometry.inverse import to_point_cloud_masked
+from rangeldm_tpu_torch.geometry.sensors import SensorSpec, get_spec
+from rangeldm_tpu_torch.geometry.voxelize import to_voxel
+from rangeldm_tpu_torch.models.unet import UNet2D
+from rangeldm_tpu_torch.models.vae import AutoencoderKL
+from rangeldm_tpu_torch.pipelines.samplers import ddim_sample, latent_sample
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the CUDA device, which must exist; "cpu" must be asked
+    for explicitly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' (--device cpu) to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           f"available")
+    return dev
+
+
+def is_diffusers_pipeline(path: str) -> bool:
+    """The released layout: unet/ holds torch weights."""
+    return any(os.path.exists(os.path.join(path, "unet", f))
+               for f in WEIGHT_FILES)
+
+
+def _ready(module: torch.nn.Module, device, dtype) -> torch.nn.Module:
+    return module.to(device=device, dtype=dtype).eval().requires_grad_(False)
+
+
+def load_diffusers_pipeline(path: str, dtype: torch.dtype = torch.bfloat16,
+                            device=None, use_ema: bool = True,
+                            pos_encoding: Optional[bool] = None) -> dict:
+    """Load a released RangeLDM pipeline directory (diffusers layout:
+    {unet, unet_ema, vae, scheduler}/) onto `device` in `dtype`. Each state
+    dict loads with strict=True."""
+    if not is_diffusers_pipeline(path):
+        raise ValueError(f"{path} is not a diffusers-layout pipeline "
+                         f"directory (unet/{WEIGHT_FILES[0]})")
+    device = resolve_device(device)
+    which = "unet_ema" if use_ema and os.path.isdir(
+        os.path.join(path, "unet_ema")) else "unet"
+    unet_cfg, sd = load_diffusers_unet(os.path.join(path, which))
+    unet_cfg = dataclasses.replace(unet_cfg, circular=True)
+    unet = UNet2D(unet_cfg)
+    unet.load_state_dict(sd, strict=True)
+    unet = _ready(unet, device, dtype)
+
+    vae = vae_cfg = None
+    vae_dir = os.path.join(path, "vae")
+    if os.path.isdir(vae_dir):
+        vae_cfg, vsd = load_diffusers_vae(vae_dir)
+        vae = AutoencoderKL(vae_cfg)
+        vae.load_state_dict(vsd, strict=True)
+        vae = _ready(vae, device, dtype)
+
+    sched_cfg = {}
+    sched_path = os.path.join(path, "scheduler", "scheduler_config.json")
+    if os.path.exists(sched_path):
+        with open(sched_path) as f:
+            sched_cfg = json.load(f)
+    schedule = Schedule(ScheduleConfig(**{
+        k: v for k, v in sched_cfg.items()
+        if k in ScheduleConfig.__dataclass_fields__}))
+    if pos_encoding is None:
+        # the layout records nothing about extra input channels; in every
+        # released config an in-out gap of exactly 1 is the pos channel
+        pos_encoding = (unet_cfg.in_channels - unet_cfg.out_channels) == 1
+    meta = {"pos_encoding": bool(pos_encoding), "source": "diffusers",
+            "schedule": sched_cfg}
+    return dict(meta=meta, unet=unet, unet_cfg=unet_cfg, vae=vae,
+                vae_cfg=vae_cfg, schedule=schedule, device=device,
+                dtype=dtype)
+
+
+def pipe_image_size(pipe):
+    """(H, W) of the generated image: the UNet sample size times the VAE's
+    down factor."""
+    f = pipe["vae_cfg"].down_factor if pipe["vae_cfg"] else 1
+    h, w = pipe["unet_cfg"].sample_size
+    return int(h) * f, int(w) * f
+
+
+def pipe_pos_encoding(pipe) -> bool:
+    """Whether the UNet takes the pos-encoding channel: the loader's record,
+    else an in-out channel gap of exactly 1."""
+    meta = pipe.get("meta") or {}
+    if "pos_encoding" in meta:
+        return bool(meta["pos_encoding"])
+    cfg = pipe["unet_cfg"]
+    return (cfg.in_channels - cfg.out_channels) == 1
+
+
+def build_sampler(pipe, batch_size: int, num_steps: int = 50,
+                  method: str = "ddim", eta: float = 0.0,
+                  final_only: bool = True):
+    """A function `sample(generator) -> (B, H, W, C)` images on the
+    pipeline's device, in its dtype. `eta` is the DDIM stochasticity.
+    final_only=False (latent pipelines) makes it return (images, decoded
+    state before every step) as `latent_sample` does."""
+    unet, cfg = pipe["unet"], pipe["unet_cfg"]
+    h, w = cfg.sample_size
+    shape = (batch_size, h, w, cfg.out_channels)
+    kw = dict(num_steps=num_steps, eta=eta, method=method,
+              pos_encoding=pipe_pos_encoding(pipe), dtype=pipe["dtype"],
+              device=pipe["device"])
+
+    if pipe["vae"] is not None:
+        vae, sf = pipe["vae"], pipe["vae_cfg"].scaling_factor
+
+        @torch.inference_mode()
+        def sample(generator: Optional[torch.Generator] = None):
+            return latent_sample(unet, vae.decode, pipe["schedule"], shape,
+                                 sf, generator, final_only=final_only,
+                                 **kw)
+    elif not final_only:
+        raise ValueError("final_only=False needs a latent pipeline")
+    else:
+        # pixel space: ddim_sample runs every method, ddpm included
+        @torch.inference_mode()
+        def sample(generator: Optional[torch.Generator] = None):
+            return ddim_sample(unet, pipe["schedule"], shape, generator,
+                               **kw)
+    return sample
+
+
+def apply_meta_normalization(spec: SensorSpec, meta) -> SensorSpec:
+    """The artifact's own range normalization record, when it has one."""
+    norm = (meta or {}).get("normalization")
+    if not norm:
+        return spec
+    return spec.replace(**{k: norm[k] for k in ("mean", "std", "log",
+                                                 "inverse") if k in norm})
+
+
+def adapt_spec_to_model(spec: SensorSpec, image_size) -> SensorSpec:
+    """Reduce a sensor spec to a model's (H, W): keep the top H beams'
+    tables and scale the BEV grid with the azimuth count."""
+    h, w = int(image_size[0]), int(image_size[1])
+    if (spec.n_beams, spec.width) == (h, w):
+        return spec
+    kw = {"width": w}
+    if w != spec.width:
+        kw["grid_sizes"] = (1, max(2, spec.grid_sizes[1] * w // spec.width),
+                            max(2, spec.grid_sizes[2] * w // spec.width))
+    if h != spec.n_beams:
+        kw.update(n_beams=h, height=spec.height[:h], zenith=spec.zenith[:h])
+    print(f"note: sensor '{spec.name}' reduced to model resolution "
+          f"{h}x{w}", file=sys.stderr)
+    return spec.replace(**kw)
+
+
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """An 8-bit greyscale PNG from a (H, W) uint8 array (zlib + struct)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def save_outputs(images, spec: SensorSpec, out_dir: str, start_idx: int,
+                 max_depth: float = 90.0) -> None:
+    """Back-project and write .bin / .png per sample
+    (ldm/inference.py:159-183). `images` (B, H, W, C) are processed on the
+    device they lie on."""
+    imgs = torch.as_tensor(images).float()
+    with torch.inference_mode():
+        pcs, valid = to_point_cloud_masked(imgs, spec, max_depth=max_depth)
+        bev = to_voxel(imgs, spec)
+    pcs, valid = pcs.cpu().numpy(), valid.cpu().numpy()
+    os.makedirs(out_dir, exist_ok=True)
+    for j in range(imgs.shape[0]):
+        pcs[j][valid[j]].astype(np.float32).tofile(
+            os.path.join(out_dir, f"{start_idx + j}.bin"))
+    bev = (torch.clamp(bev[:, 0], 0, 1) * 255).to(torch.uint8).cpu().numpy()
+    rng = torch.clamp((imgs[..., 0] * spec.std + spec.mean) / spec.range_fill,
+                      0, 1) * 255
+    rng = rng.to(torch.uint8).cpu().numpy()
+    for j in range(imgs.shape[0]):
+        write_png_gray(os.path.join(out_dir, f"{start_idx + j}_bev.png"),
+                       bev[j])
+        write_png_gray(os.path.join(out_dir, f"{start_idx + j}_range.png"),
+                       rng[j])
+
+
+def batch_generator(device: torch.device, seed: int,
+                    batch_index: int) -> torch.Generator:
+    """The generator of one batch: seeded from (seed, batch index), so each
+    batch's samples do not depend on which batches ran before it."""
+    state = np.random.SeedSequence([seed, batch_index]).generate_state(1)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--pipeline", required=True)
+    ap.add_argument("--out", default="samples")
+    ap.add_argument("--samples", type=int, default=1000)
+    ap.add_argument("--batch_size", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--method", default="ddim",
+                    choices=["ddim", "ddpm", "dpmpp"],
+                    help="dpmpp = DPM-Solver++(2M): try --steps 20")
+    ap.add_argument("--eta", type=float, default=0.0,
+                    help="DDIM stochasticity (the reference pipelines' eta)")
+    ap.add_argument("--timestep_spacing", default=None,
+                    choices=["leading", "trailing"],
+                    help="override the pipeline's timestep spacing")
+    ap.add_argument("--sensor", default=None,
+                    help="back-projection geometry (default kitti360)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA device; 'cpu' "
+                         "must be asked for)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    pipe = load_diffusers_pipeline(args.pipeline, device=device)
+    if args.timestep_spacing:
+        pipe["schedule"] = Schedule(dataclasses.replace(
+            pipe["schedule"].cfg, timestep_spacing=args.timestep_spacing))
+    sample = build_sampler(pipe, args.batch_size, args.steps, args.method,
+                           eta=args.eta)
+    sensor = args.sensor or pipe["meta"].get("sensor", "kitti360")
+    spec = apply_meta_normalization(
+        adapt_spec_to_model(get_spec(sensor), pipe_image_size(pipe)),
+        pipe["meta"])
+
+    written = 0
+    for b in range(-(-args.samples // args.batch_size)):
+        imgs = sample(batch_generator(device, args.seed, b))
+        start = b * args.batch_size
+        imgs = imgs[:max(0, min(args.batch_size, args.samples - start))]
+        if len(imgs):
+            save_outputs(imgs, spec, args.out, start)
+            written += len(imgs)
+    print(f"wrote {written} samples to {args.out} on {device}")
+    return written
+
+
+if __name__ == "__main__":
+    main()
