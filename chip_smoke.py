@@ -4,17 +4,24 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. device   - require CUDA; the card's name and power limit; TF32 off
-  2. build    - compile every CUDA kernel from rangeldm_tpu_torch/csrc/
-  3. kernels  - each kernel against its plain PyTorch version at the
-                flagship shapes (batch 4), f32 and bf16, with times, the
-                bound and one PyTorch library call as a yardstick
-  4. unet     - one flagship-width UNet forward (f32) through the kernel
-                against the same UNet on the plain einsum path
-  5. main     - a flagship pipeline directory with seeded random weights at
-                full width, loaded with RangePipeline.from_pretrained and
-                sampled with DDIM-50 and DPM-Solver++-20 in bf16, then
-                to_point_clouds and the sampling CLI
+  1. device    - require CUDA; the card's name and power limit; TF32 off
+  2. build     - compile every CUDA kernel from rangeldm_tpu_torch/csrc/
+  3. kernels   - each kernel against its plain PyTorch version at the
+                 flagship shapes (batch 4 and the training batch 32), f32
+                 and bf16, with times, the bound and one PyTorch library
+                 call as a yardstick
+  4. unet      - one flagship-width UNet forward (f32) through the kernel
+                 against the same UNet on the plain einsum path
+  4b. unet_grad - one flagship-width UNet forward and backward (f32)
+                 through both kernels against the plain path: every
+                 parameter's gradient
+  5. main      - a flagship pipeline directory with seeded random weights at
+                 full width, loaded with RangePipeline.from_pretrained and
+                 sampled with DDIM-50 and DPM-Solver++-20 in bf16, then
+                 to_point_clouds and the sampling CLI
+  6. train     - LdmTrainer on the shipped flagship config (batch 32, bf16)
+                 for 10 fit steps on seeded synthetic range images, then
+                 save_final, RangePipeline.from_pretrained and a sample
 Then the kernel summary line, the card line, and the result line. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -36,15 +43,59 @@ import torch.nn.functional as F
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # H100 SXM
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# backward: rtol 2e-4 / atol 2e-5 in f32 (tests/test_flash_attention.py);
+# 3e-2 of the largest entry in bf16 (tests/test_torch_port_attention_bwd.py)
+BWD_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: 3e-2}
 UNET_TOL = 5e-4
+GRAD_TOL = (1e-3, 1e-6)     # per tensor: 1e-3 * max|ref| + 1e-6
 BATCH = 4
+TRAIN_BATCH = 32
+TRAIN_STEPS = 10
 SEED = 0
-# (N = batch * heads, D, T) of the flagship UNet's attention layers at
-# batch 4, with the number of such layers in one forward, plus one ragged
-# case off the main path
-FLAGSHIP_SHAPES = [((BATCH * 16, 8, 1024), 5), ((BATCH * 32, 8, 256), 5),
-                   ((BATCH * 32, 8, 64), 6)]
+# (heads, T) of the flagship UNet's attention layers, with the number of
+# such layers in one forward; N = batch * heads. One ragged case (N, 8, 200)
+# lies off the main path.
+FLAGSHIP_LAYERS = [(16, 1024, 5), (32, 256, 5), (32, 64, 6)]
 RAGGED_SHAPE = (5, 8, 200)
+# rangeldm_tpu/configs/rangeldm_kitti360.yaml, the shipped flagship training
+# config, with the warm-up cut to 2 steps so that 10 steps move the weights;
+# output_dir is a temporary directory set at run time
+TRAIN_CFG = {
+    "model": "rangeldm_kitti360",
+    "output_dir": None,
+    "data": {"sensor": "kitti360", "root": "${KITTI360_DATASET}",
+             "width": 1024, "used_feature": 2},
+    "train_batch_size": 32,
+    "num_epochs": 1000,
+    "gradient_accumulation_steps": 1,
+    "use_ema": True,
+    "learning_rate": 1.0e-4,
+    "lr_warmup_steps": 2,
+    "lr_scheduler": "cosine",
+    "adam_beta1": 0.95,
+    "adam_beta2": 0.999,
+    "adam_weight_decay": 1.0e-6,
+    "adam_epsilon": 1.0e-8,
+    "ema_inv_gamma": 1.0,
+    "ema_power": 0.75,
+    "ema_max_decay": 0.9999,
+    "ddim": True,
+    "ddpm_num_steps": 1000,
+    "ddpm_beta_schedule": "linear",
+    "prediction_type": "epsilon",
+    "ddpm_num_inference_steps": 50,
+    "snr_gamma": None,
+    "pos_encoding": True,
+    "with_vae": True,
+    "vae_checkpoint": None,
+    "checkpointing_steps": 500,
+    "checkpoints_total_limit": 10,
+    "resume_from_checkpoint": None,
+    "save_images_epochs": 1,
+    "save_model_epochs": 10,
+    "eval_batch_size": 16,
+    "mixed_precision": "bf16",
+}
 
 
 def emit(phase: str, **fields):
@@ -71,12 +122,16 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_work(shape, dtype) -> tuple:
-    """(operations, bytes) of one call: 4 T^2 D flops per head; q, k, v
-    read and out written once."""
+def attention_work(kernel, shape, dtype) -> tuple:
+    """(operations, bytes) of one call. Forward: 4 T^2 D flops per head
+    (two products); q, k, v read and out written once. Backward: 10 T^2 D
+    flops per head (five products: l, dp, dv, dq, dk); q, k, v, g read and
+    dq, dk, dv written once."""
     n, d, t = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return 4.0 * t * t * d * n, 4.0 * n * d * t * itemsize
+    if kernel == "attention_fwd":
+        return 4.0 * t * t * d * n, 4.0 * n * d * t * itemsize
+    return 10.0 * t * t * d * n, 7.0 * n * d * t * itemsize
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple:
@@ -112,38 +167,91 @@ def phase_build(kernels):
     emit("build", seconds=round(seconds, 3), ptxas=ptxas)
 
 
+def _shapes(batch):
+    return [((batch * heads, 8, t), layers)
+            for heads, t, layers in FLAGSHIP_LAYERS]
+
+
+def _close(kernel, got, want, dtype) -> tuple:
+    """(max abs error, within tolerance) of a kernel's outputs."""
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    if kernel == "attention_fwd":
+        tol = TOL[dtype]
+        return err, all(torch.allclose(a.float(), b.float(), rtol=tol,
+                                       atol=tol) for a, b in zip(got, want))
+    if dtype == torch.float32:
+        rtol, atol = BWD_TOL[dtype]
+        return err, all(torch.allclose(a, b, rtol=rtol, atol=atol)
+                        for a, b in zip(got, want))
+    return err, all((a.float() - b.float()).abs().max().item()
+                    <= BWD_TOL[dtype] * b.float().abs().max().item()
+                    for a, b in zip(got, want))
+
+
 def phase_kernels(attention):
+    """Each kernel at the flagship shapes of sampling (batch 4) and training
+    (batch 32), plus a ragged T, against its plain version; times of the
+    kernel, the plain version and one PyTorch call (SDPA forward, or the
+    autograd backward of SDPA) on the same inputs."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = [(kernel, batch, shape, layers)
+             for kernel in ("attention_fwd", "attention_bwd")
+             for batch in (BATCH, TRAIN_BATCH)
+             for shape, layers in _shapes(batch)]
+    cases += [(kernel, 0, RAGGED_SHAPE, 0)
+              for kernel in ("attention_fwd", "attention_bwd")]
     rows = []
-    for shape, layers in FLAGSHIP_SHAPES + [(RAGGED_SHAPE, 0)]:
+    for kernel, batch, shape, layers in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(shape, generator=gen, device="cuda",
-                                   dtype=dtype) for _ in range(3))
+            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda",
+                                      dtype=dtype) for _ in range(4))
             scale = shape[1] ** -0.5
-            got = attention.fused_attention_t(q, k, v, scale)
-            want = attention.attention_t_reference(q, k, v, scale)
+            qs, ks, vs, gs = (u.transpose(1, 2) for u in (q, k, v, g))
+            if kernel == "attention_fwd":
+                def run():
+                    return attention.fused_attention_t(q, k, v, scale)
+
+                def plain():
+                    return attention.attention_t_reference(q, k, v, scale)
+
+                def library():
+                    return F.scaled_dot_product_attention(qs, ks, vs,
+                                                          scale=scale)
+            else:
+                def run():
+                    return attention.fused_attention_bwd_t(q, k, v, g, scale)
+
+                def plain():
+                    return attention.attention_bwd_t_reference(q, k, v, g,
+                                                               scale)
+                leaves = [u.detach().requires_grad_(True)
+                          for u in (qs, ks, vs)]
+                out = F.scaled_dot_product_attention(*leaves, scale=scale)
+
+                def library():
+                    return torch.autograd.grad(out, leaves, gs,
+                                               retain_graph=True)
+            got = run()
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain()
+            want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = TOL[dtype]
-            ok = torch.allclose(got.float(), want.float(), rtol=tol,
-                                atol=tol)
-            qs, ks, vs = (u.transpose(1, 2) for u in (q, k, v))
-            ms = cuda_ms(lambda: attention.fused_attention_t(q, k, v, scale),
-                         20)
-            plain_ms = cuda_ms(
-                lambda: attention.attention_t_reference(q, k, v, scale), 5)
-            library_ms = cuda_ms(
-                lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                       scale=scale), 20)
-            flops, nbytes = attention_work(shape, dtype)
+            err, ok = _close(kernel, got, want, dtype)
+            del got, want
+            ms = cuda_ms(run, 20)
+            plain_ms = cuda_ms(plain, 5)
+            library_ms = cuda_ms(library, 20)
+            flops, nbytes = attention_work(kernel, shape, dtype)
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            row = dict(shape=list(shape), dtype=str(dtype).split(".")[1],
+            row = dict(kernel=kernel, batch=batch, shape=list(shape),
+                       dtype=str(dtype).split(".")[1],
                        layers_per_unet_forward=layers, max_abs_err=err,
-                       tol=tol, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, flops=flops, bytes=nbytes)
-            emit("kernels", kernel="attention_fwd", **row)
-            require(ok, f"attention_fwd disagrees with its plain version at "
+                       ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                       bytes=nbytes)
+            emit("kernels", **row)
+            require(ok, f"{kernel} disagrees with its plain version at "
                         f"{shape} {dtype}: max abs err {err}")
             rows.append(row)
     return rows
@@ -175,6 +283,68 @@ def phase_unet(kernels, models):
                             f"{launches} times, expected 16")
     require(err <= UNET_TOL, f"UNet with the kernel differs from the "
                              f"einsum path by {err}")
+
+
+def phase_unet_grad(kernels, models):
+    """The full-width flagship UNet in f32 (TF32 off) at batch 2: one
+    forward and backward through both kernels and through the plain einsum
+    path, on the same weights, input and cotangent. The loss is a mean, so
+    the gradients stay small against the 1e-6 floor of the tolerance except
+    where they are rounding noise (to_k.bias has an exact gradient of
+    zero)."""
+    cfg = models.rangeldm_kitti360().unet
+    torch.manual_seed(SEED)
+    fused = models.UNet2D(cfg).cuda().train()
+    plain = models.UNet2D(dataclasses.replace(
+        cfg, use_fused_attention=False)).cuda().train()
+    plain.load_state_dict(fused.state_dict())
+    h, w = cfg.sample_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = torch.randn((2, cfg.in_channels, w, h), generator=gen, device="cuda")
+    ct = torch.randn((2, cfg.out_channels, w, h), generator=gen,
+                     device="cuda")
+    t = torch.tensor([10, 900], device="cuda")
+    launches = {}
+    for name, model in (("fused", fused), ("plain", plain)):
+        kernels.reset_launches()
+        (model(x, t) * ct).mean().backward()
+        torch.cuda.synchronize()
+        launches[name] = dict(kernels.LAUNCHES)
+    want = dict(plain.named_parameters())
+    absmax = max(p.grad.abs().max().item() for p in want.values())
+    worst, worst_rel, attn_params, n = None, 0.0, 0, 0
+    for pname, p in fused.named_parameters():
+        ref = want[pname].grad
+        require(p.grad is not None and ref is not None,
+                f"no gradient for {pname}")
+        require(bool(torch.isfinite(p.grad).all()),
+                f"non-finite gradient for {pname}")
+        err = (p.grad - ref).abs().max().item()
+        tol = GRAD_TOL[0] * ref.abs().max().item() + GRAD_TOL[1]
+        require(err <= tol, f"gradient of {pname} differs from the plain "
+                            f"path by {err} (tolerance {tol})")
+        if ".attentions." in pname and pname.split(".")[-2] in (
+                "group_norm", "to_q", "to_k", "to_v"):
+            attn_params += 1
+        if worst is None or err / tol > worst[1] / worst[2]:
+            worst = (pname, err, tol)
+        if ref.abs().max().item() >= 1e-3 * absmax:
+            worst_rel = max(worst_rel, err / ref.abs().max().item())
+        n += 1
+    emit("unet_grad", dtype="float32", batch=2, latent=[h, w],
+         tensors=n, attention_qkv_norm_tensors=attn_params,
+         worst_tensor=worst[0], worst_err=worst[1], worst_tol=worst[2],
+         grad_absmax=absmax, worst_rel_err_of_tensors_above_1e_3=worst_rel,
+         launches=launches)
+    # 16 attention layers x (group_norm, to_q, to_k, to_v) x (weight, bias)
+    require(attn_params == 16 * 8, f"{attn_params} attention q/k/v/norm "
+                                   f"tensors checked, expected 128")
+    for kernel in ("attention_fwd", "attention_bwd"):
+        require(launches["fused"][kernel] == 16,
+                f"UNet forward and backward launched {kernel} "
+                f"{launches['fused'][kernel]} times, expected 16")
+        require(launches["plain"][kernel] == 0,
+                f"the plain path launched {kernel}")
 
 
 def phase_main(kernels, models, smi):
@@ -251,28 +421,100 @@ def phase_main(kernels, models, smi):
     return launches
 
 
+def phase_train(kernels, smi):
+    """LdmTrainer.fit on TRAIN_CFG for TRAIN_STEPS steps at batch 32 in
+    bf16 on seeded synthetic range images, then save_final, reload and a
+    2-step DDIM sample. Returns the launches of each kernel in the fit."""
+    from rangeldm_tpu_torch.pipelines import RangePipeline
+    from rangeldm_tpu_torch.train_ldm import LdmTrainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dict(TRAIN_CFG, output_dir=os.path.join(tmp, "run"))
+        trainer = LdmTrainer(cfg)
+        require(trainer.device.type == "cuda", "trainer is not on CUDA")
+        h, w = trainer.spec.image_size
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        images = [torch.randn((TRAIN_BATCH, h, w, 2), generator=gen,
+                              device="cuda") for _ in range(TRAIN_STEPS)]
+        params0 = [p.detach().clone() for p in trainer.unet.parameters()]
+        ema0 = [e.clone() for e in trainer.state.ema]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        last = trainer.fit(({"jpg": x} for x in images),
+                           max_steps=TRAIN_STEPS, log_every=1)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(cfg["output_dir"], "train_log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        require([r["step"] for r in log] == list(range(1, TRAIN_STEPS + 1)),
+                f"train log steps {[r['step'] for r in log]}")
+        require(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                    for r in log), f"non-finite loss or grad_norm: {log}")
+        moved = sum(not torch.equal(a, b)
+                    for a, b in zip(params0, trainer.unet.parameters()))
+        ema_moved = sum(not torch.equal(a, b)
+                        for a, b in zip(ema0, trainer.state.ema))
+        require(moved == len(params0), f"{moved} of {len(params0)} "
+                                       f"parameters changed")
+        require(ema_moved == len(ema0), f"{ema_moved} of {len(ema0)} EMA "
+                                        f"tensors changed")
+        for kernel in ("attention_fwd", "attention_bwd"):
+            require(launches.get(kernel) == 16 * TRAIN_STEPS,
+                    f"fit launched {kernel} {launches.get(kernel)} times, "
+                    f"expected {16 * TRAIN_STEPS}")
+        # the log's steps per second count from the start of fit; the
+        # steady rate leaves out step 1 (first-call set-up)
+        elapsed = [r["step"] / r["sps"] for r in log]
+        steady = (TRAIN_STEPS - 1) / (elapsed[-1] - elapsed[0])
+
+        path = trainer.save_final()
+        pipe = RangePipeline.from_pretrained(path)
+        images = pipe(batch_size=BATCH, num_inference_steps=2, seed=SEED)
+        require(images.shape == (BATCH, h, w, 2) and
+                bool(np.isfinite(images).all()),
+                f"sample from the trained pipeline: {images.shape}")
+        saved = sorted(os.listdir(path))
+    require(saved == ["scheduler", "unet", "unet_ema", "vae"],
+            f"save_final wrote {saved}")
+    emit("train", dtype="bfloat16", batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+         card=smi, losses=[r["loss"] for r in log],
+         grad_norms=[r["grad_norm"] for r in log],
+         steps_per_s=steady, samples_per_s=steady * TRAIN_BATCH,
+         steps_per_s_with_first=last["sps"], first_step_s=elapsed[0],
+         peak_memory_gib=peak_gib, launches=launches, saved=saved)
+    return launches
+
+
 def summary(rows, launches):
-    """One entry per kernel: time, plain time and library time summed over
-    the attention layers of one flagship UNet forward in bf16 (the main
-    path's dtype); the bound of that same work; and the largest
-    disagreement with the plain version at those shapes."""
-    main = [r for r in rows if r["dtype"] == "bfloat16"
-            and r["layers_per_unet_forward"]]
+    """One entry per kernel, over the attention layers of one flagship UNet
+    in bf16 at the batch of the path that carries it most: the forward at
+    sampling batch 4, the backward at training batch 32. Time, plain time
+    and library time are summed over those layers; the bound is that of
+    the same work; the error is the largest at those shapes."""
+    entries = []
+    for kernel, batch, replaces in (
+            ("attention_fwd", BATCH, "rangeldm_tpu/ops/attention.py:48"),
+            ("attention_bwd", TRAIN_BATCH,
+             "rangeldm_tpu/ops/attention.py:115")):
+        main = [r for r in rows if r["kernel"] == kernel
+                and r["batch"] == batch and r["dtype"] == "bfloat16"]
 
-    def total(key):
-        return sum(r[key] * r["layers_per_unet_forward"] for r in main)
+        def total(key):
+            return sum(r[key] * r["layers_per_unet_forward"] for r in main)
 
-    bound_ms, bound_by = bound(total("flops"), total("bytes"),
-                               torch.bfloat16)
-    return {"kernels": [{
-        "name": "attention_fwd", "route": "cuda",
-        "source": "rangeldm_tpu_torch/csrc/attention_fwd.cu",
-        "replaces": "rangeldm_tpu/ops/attention.py:48",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in main),
-        "ms": total("ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": total("library_ms")}]}
+        bound_ms, bound_by = bound(total("flops"), total("bytes"),
+                                   torch.bfloat16)
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": f"rangeldm_tpu_torch/csrc/{kernel}.cu",
+            "replaces": replaces, "launches": launches[kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in main),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": total("library_ms")})
+    return {"kernels": entries}
 
 
 def main() -> int:
@@ -287,7 +529,11 @@ def main() -> int:
     phase_build(kernels)
     rows = phase_kernels(attention)
     phase_unet(kernels, models)
-    launches = phase_main(kernels, models, smi)
+    phase_unet_grad(kernels, models)
+    launches = {"attention_fwd": phase_main(kernels, models, smi)}
+    trained = phase_train(kernels, smi)
+    launches["attention_fwd"] += trained["attention_fwd"]
+    launches["attention_bwd"] = trained["attention_bwd"]
     print(json.dumps(summary(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

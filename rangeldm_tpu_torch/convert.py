@@ -279,22 +279,29 @@ def load_diffusers_vae(vae_dir: str) -> Tuple[VaeConfig, StateDict]:
 
 def save_diffusers_pipeline(path: str, unet: torch.nn.Module,
                             vae: Optional[torch.nn.Module] = None,
-                            schedule: Optional[dict] = None) -> None:
-    """Write a diffusers-layout pipeline directory: unet/ and (when given)
-    vae/ with config.json + diffusion_pytorch_model.safetensors, and
+                            schedule: Optional[dict] = None,
+                            unet_ema: Optional[StateDict] = None) -> None:
+    """Write a diffusers-layout pipeline directory: unet/, and (when given)
+    unet_ema/ with the EMA weights of the same UNet and vae/, each with
+    config.json + diffusion_pytorch_model.safetensors, and
     scheduler/scheduler_config.json."""
     u = unet.cfg
-    d = os.path.join(path, "unet")
-    write_safetensors(unet.state_dict(), os.path.join(d, WEIGHT_FILES[0]))
-    with open(os.path.join(d, "config.json"), "w") as f:
-        json.dump({"sample_size": list(u.sample_size)[::-1],
+    unet_config = {"sample_size": list(u.sample_size)[::-1],
                    "in_channels": u.in_channels,
                    "out_channels": u.out_channels,
                    "layers_per_block": u.layers_per_block,
                    "block_out_channels": list(u.block_out_channels),
                    "down_block_types": list(u.down_block_types),
                    "up_block_types": list(u.up_block_types),
-                   "attention_head_dim": u.attention_head_dim}, f)
+                   "attention_head_dim": u.attention_head_dim}
+    weights = {"unet": unet.state_dict()}
+    if unet_ema is not None:
+        weights["unet_ema"] = unet_ema
+    for name, sd in weights.items():
+        d = os.path.join(path, name)
+        write_safetensors(sd, os.path.join(d, WEIGHT_FILES[0]))
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(unet_config, f)
     if vae is not None:
         v = vae.cfg
         d = os.path.join(path, "vae")

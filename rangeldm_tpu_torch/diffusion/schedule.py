@@ -12,6 +12,10 @@ final sigma = 0 boundary. The scalar coefficients are computed in numpy
 float32, the precision of the JAX package's f32 path, and applied to the
 tensors as scalars. (Under bf16 the JAX package rounds the coefficients to
 bf16 before combining them; here they stay f32.)
+
+The training step draws one timestep per sample, so its functions
+(`add_noise`, `get_velocity`, `snr`, `min_snr_weight`) take a (B,) tensor of
+timesteps and gather the coefficients on the tensor's device.
 """
 
 from __future__ import annotations
@@ -68,17 +72,64 @@ class Schedule:
         self.betas = make_betas(cfg)
         self.alphas_cumprod = torch.cumprod(
             torch.from_numpy(f32(1) - self.betas), 0).numpy()
+        self._tables = {}           # device -> alphas_cumprod on it
 
-    def _acp(self, t: int, final: Optional[float] = None) -> np.float32:
+    def _acp(self, t, final: Optional[float] = None):
         """alpha_cumprod[t]; t < 0 gives the final value: for DDIM 1.0 when
         set_alpha_to_one, else alphas_cumprod[0]. DDPM passes final=1.0
-        (diffusers DDPMScheduler uses `self.one` whatever the config)."""
-        if t >= 0:
-            return self.alphas_cumprod[min(t, self.cfg.num_train_timesteps - 1)]
+        (diffusers DDPMScheduler uses `self.one` whatever the config).
+        A Python int gives a numpy float32; a tensor of timesteps gives an
+        f32 tensor of its shape on its device."""
         if final is None:
             final = (1.0 if self.cfg.set_alpha_to_one
                      else self.alphas_cumprod[0])
+        last = self.cfg.num_train_timesteps - 1
+        if isinstance(t, torch.Tensor):
+            table = self._tables.get(t.device)
+            if table is None:
+                table = self._tables[t.device] = torch.from_numpy(
+                    self.alphas_cumprod).to(t.device)
+            acp = table[t.clamp(0, last).long()]
+            return torch.where(t < 0, torch.full_like(acp, float(final)),
+                               acp)
+        if t >= 0:
+            return self.alphas_cumprod[min(t, last)]
         return f32(final)
+
+    @staticmethod
+    def _bc(v: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+        """(B,) coefficients broadcast over the trailing dims of ref, in
+        ref's dtype."""
+        return v.reshape(v.shape + (1,) * (ref.dim() - v.dim())).to(ref.dtype)
+
+    # --- training ------------------------------------------------------
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        """The forward process: sqrt(acp_t) x0 + sqrt(1 - acp_t) noise."""
+        acp = self._acp(t)
+        return (self._bc(torch.sqrt(acp), x0) * x0
+                + self._bc(torch.sqrt(1.0 - acp), x0) * noise)
+
+    def get_velocity(self, x0: torch.Tensor, noise: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+        """The v-prediction target sqrt(acp_t) noise - sqrt(1 - acp_t) x0."""
+        acp = self._acp(t)
+        return (self._bc(torch.sqrt(acp), x0) * noise
+                - self._bc(torch.sqrt(1.0 - acp), x0) * x0)
+
+    def snr(self, t: torch.Tensor) -> torch.Tensor:
+        """compute_snr (ldm/train_unconditional.py:53-75)."""
+        acp = self._acp(t)
+        return acp / (1.0 - acp)
+
+    def min_snr_weight(self, t: torch.Tensor, gamma: float,
+                       velocity: bool = False) -> torch.Tensor:
+        """Min-SNR loss weighting (arXiv:2303.09556;
+        ldm/train_unconditional.py:527-543)."""
+        snr = self.snr(t)
+        if velocity:
+            snr = snr + 1.0
+        return torch.clamp(snr, max=gamma) / snr
 
     def timesteps(self, num_inference_steps: int) -> np.ndarray:
         """'leading': (arange(n) * (T // n)).round()[::-1] + offset, the

@@ -105,8 +105,11 @@ class ResnetBlock2D(nn.Module):
 
 def _channel_linear(layer: nn.Linear, yt: torch.Tensor) -> torch.Tensor:
     """A Linear applied on the channel axis of a (B, C, T) tensor, giving
-    (B, C_out, T) without a transpose."""
-    return torch.matmul(layer.weight, yt) + layer.bias[:, None]
+    (B, C_out, T) without a transpose. The bias is added in the product's
+    dtype, as a Linear does: under autocast the product is bf16, and an f32
+    bias would promote the sum (and the attention after it) to f32."""
+    y = torch.matmul(layer.weight, yt)
+    return y + layer.bias[:, None].to(y.dtype)
 
 
 class Attention(nn.Module):

@@ -178,10 +178,14 @@ def gaussian_params(moments: torch.Tensor):
 
 
 def gaussian_sample(moments: torch.Tensor,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[torch.Tensor] = None):
+    """A posterior draw mean + std * noise; `noise` (standard normal of the
+    mean's shape) is drawn from `generator` unless given."""
     mean, logvar = gaussian_params(moments)
-    noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                        device=mean.device)
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            dtype=mean.dtype, device=mean.device)
     return mean + torch.exp(0.5 * logvar) * noise
 
 

@@ -61,3 +61,18 @@ def rangeldm_nuscenes() -> ModelSpec:
         image_size=(32, 1024),
         sensor="nuscenes",
     )
+
+
+# the unconditional configurations; the conditional ones (upsample,
+# inpainting) come with conditional sampling and training
+ZOO = {
+    "rangeldm_kitti360": rangeldm_kitti360,
+    "rangeldm_nuscenes": rangeldm_nuscenes,
+}
+
+
+def get_model_spec(name: str) -> ModelSpec:
+    if name not in ZOO:
+        raise KeyError(f"unknown model {name!r}; available: {sorted(ZOO)} "
+                       f"(or pass an inline model_config)")
+    return ZOO[name]()

@@ -1,3 +1,4 @@
 from rangeldm_tpu_torch.ops.attention import (  # noqa: F401
-    attention_t_reference, fused_attention_t,
+    FusedAttention, attention_bwd_t_reference, attention_t_reference,
+    fused_attention_bwd_t, fused_attention_t,
 )

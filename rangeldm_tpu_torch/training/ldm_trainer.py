@@ -1,0 +1,160 @@
+"""Latent / pixel diffusion training step (rangeldm_tpu/training/
+ldm_trainer.py, the per-batch hot path of ldm/train_unconditional.py:
+466-556):
+
+  frozen-VAE encode -> scale -> noise and timesteps -> add_noise ->
+  concat pos-encoding -> UNet -> (min-SNR weighted) MSE -> backward ->
+  clipped AdamW update -> EMA.
+
+Tensors are in the torch layout (B, C, W=azimuth, H=beams). Under a bf16
+compute dtype the parameters stay f32: the VAE encode and the UNet forward
+run under `torch.autocast`, the loss in f32. On CUDA every attention layer
+of the UNet goes through the fused kernels, forward and backward.
+
+Randomness comes from the caller's `torch.Generator`; `noise`, `timesteps`
+and `posterior_noise` may be given instead, so that a test can feed the
+same draws to this step and to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from rangeldm_tpu_torch.diffusion.schedule import Schedule
+from rangeldm_tpu_torch.models.vae import gaussian_sample
+from rangeldm_tpu_torch.pipelines.samplers import make_pos_encoding
+from rangeldm_tpu_torch.training.ema import ema_update, power_decay
+from rangeldm_tpu_torch.training.train_state import TrainState
+
+
+@dataclasses.dataclass(frozen=True)
+class LdmTrainConfig:
+    pos_encoding: bool = True
+    scaling_factor: float = 0.18215     # vae.config.scaling_factor
+    shifting_factor: float = 0.0        # pixel-space option (train_unconditional.py:483-485)
+    pixel_scaling: Optional[float] = None  # args.scaling_factor for RangeDM
+    snr_gamma: Optional[float] = None
+    ema_inv_gamma: float = 1.0
+    ema_power: float = 0.75
+    ema_max_decay: float = 0.9999
+    grad_accum_steps: int = 1
+
+
+def apply_updates_and_ema(state: TrainState, loss: torch.Tensor,
+                          cfg: LdmTrainConfig) -> Dict[str, torch.Tensor]:
+    """The epilogue of a step: optimizer update, EMA, step increment. The
+    EMA decay is read at the pre-increment step (diffusers' get_decay uses
+    optimization_step - 1), so the first update copies the parameters into
+    the shadow."""
+    grad_norm = state.apply_gradients()
+    if state.ema is not None:
+        decay = power_decay(state.step, cfg.ema_inv_gamma, cfg.ema_power,
+                            max_decay=cfg.ema_max_decay)
+        ema_update(state.ema, state.model.parameters(), decay)
+    state.step += 1
+    return {"loss": loss, "grad_norm": grad_norm}
+
+
+def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
+                        vae: Optional[torch.nn.Module] = None,
+                        cond_fn: Optional[Callable] = None,
+                        compute_dtype: torch.dtype = torch.float32):
+    """Returns `train_step(state, batch, generator=None, *, noise=None,
+    timesteps=None, posterior_noise=None) -> metrics`, which updates
+    `state` (its model, optimizer, EMA and step) in place and returns the
+    loss and the gradient norm before the clip as tensors.
+
+    batch: (B, C, W, H) range images (already normalized), or a dict with
+    'jpg' images or 'moments', the frozen VAE's posterior moments
+    (B, 2Z, W, H). `vae` is an AutoencoderKL whose encoder stays frozen;
+    without one the images are the diffusion space (pixel diffusion).
+    Given draws are for the whole batch: `noise` of the latents' shape,
+    `timesteps` (B,), `posterior_noise` of the posterior mean's shape."""
+    if cond_fn is not None:
+        raise NotImplementedError("conditional training (upsample, "
+                                  "inpainting) is not ported yet")
+    prediction_type = schedule.cfg.prediction_type
+    if prediction_type not in ("epsilon", "v_prediction"):
+        raise ValueError(prediction_type)
+    mixed = compute_dtype != torch.float32
+
+    def autocast(device: torch.device):
+        return torch.autocast(device.type, dtype=compute_dtype,
+                              enabled=mixed)
+
+    @torch.no_grad()
+    def encode(batch, generator, posterior_noise) -> torch.Tensor:
+        """f32 latents of the batch, outside the graph (the VAE is
+        frozen)."""
+        if isinstance(batch, dict) and "moments" in batch:
+            moments = batch["moments"]
+        else:
+            images = batch["jpg"] if isinstance(batch, dict) else batch
+            if vae is None:
+                latents = images.float() - cfg.shifting_factor
+                if cfg.pixel_scaling is not None:
+                    latents = latents * cfg.pixel_scaling
+                return latents
+            with autocast(images.device):
+                moments = vae.encode_moments(images)
+        return gaussian_sample(moments.float(), generator,
+                               noise=posterior_noise) * cfg.scaling_factor
+
+    def loss_fn(model, latents, noise, t) -> torch.Tensor:
+        noisy = schedule.add_noise(latents, noise, t)
+        target = (noise if prediction_type == "epsilon"
+                  else schedule.get_velocity(latents, noise, t))
+        inp = noisy
+        if cfg.pos_encoding:
+            b, _, w, h = latents.shape
+            inp = torch.cat([inp, make_pos_encoding(
+                b, h, w, latents.dtype, latents.device)], dim=1)
+        with autocast(latents.device):
+            pred = model(inp, t)
+        err = (pred.float() - target.float()) ** 2
+        if cfg.snr_gamma is None:
+            return err.mean()
+        w = schedule.min_snr_weight(
+            t, cfg.snr_gamma, velocity=prediction_type == "v_prediction")
+        return (err.mean(dim=(1, 2, 3)) * w).mean()
+
+    def train_step(state: TrainState, batch,
+                   generator: Optional[torch.Generator] = None, *,
+                   noise: Optional[torch.Tensor] = None,
+                   timesteps: Optional[torch.Tensor] = None,
+                   posterior_noise: Optional[torch.Tensor] = None):
+        latents = encode(batch, generator, posterior_noise)
+        b = latents.shape[0]
+        if noise is None:
+            noise = torch.randn(latents.shape, generator=generator,
+                                dtype=latents.dtype, device=latents.device)
+        if timesteps is None:
+            timesteps = torch.randint(0, schedule.cfg.num_train_timesteps,
+                                      (b,), generator=generator,
+                                      device=latents.device)
+        model = state.model
+        state.optimizer.zero_grad(set_to_none=True)
+        k = cfg.grad_accum_steps
+        if k == 1:
+            loss = loss_fn(model, latents, noise, timesteps)
+            loss.backward()
+            return apply_updates_and_ema(state, loss.detach(), cfg)
+        if b % k:
+            raise ValueError(f"batch {b} is not divisible into "
+                             f"{k} micro-batches")
+        # micro-batch accumulation (the reference's accelerate.accumulate,
+        # ldm/train_unconditional.py:503): sum the gradients, then average
+        loss = torch.zeros((), device=latents.device)
+        for lat, nz, t in zip(latents.chunk(k), noise.chunk(k),
+                              timesteps.chunk(k)):
+            micro = loss_fn(model, lat, nz, t)
+            micro.backward()
+            loss = loss + micro.detach()
+        torch._foreach_div_([p.grad for p in model.parameters()
+                             if p.grad is not None], k)
+        return apply_updates_and_ema(state, loss / k, cfg)
+
+    return train_step

@@ -1,12 +1,13 @@
-"""The CUDA attention kernel (rangeldm_tpu_torch/csrc/attention_fwd.cu)
-against its plain PyTorch version, on the card. The kernel has no CPU
-mode, so without a CUDA device every test here skips. On a machine with a
-card (and without JAX, which this file does not need):
+"""The CUDA attention kernels (rangeldm_tpu_torch/csrc/attention_fwd.cu and
+attention_bwd.cu) against their plain PyTorch versions, on the card. The
+kernels have no CPU mode, so without a CUDA device every test here skips.
+On a machine with a card (and without JAX, which this file does not need):
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Tolerances are those of tests/test_flash_attention.py: 2e-5 in f32, 3e-2
-in bf16."""
+Tolerances are those of tests/test_flash_attention.py: forward 2e-5 in f32
+and 3e-2 in bf16; backward rtol 2e-4 / atol 2e-5 in f32 and 3e-2 of the
+largest entry in bf16 (tests/test_torch_port_attention_bwd.py says why)."""
 
 import dataclasses
 
@@ -15,8 +16,10 @@ import torch
 
 from rangeldm_tpu_torch.models.unet import UNet2D, UNetConfig
 from rangeldm_tpu_torch.ops import kernels
+from rangeldm_tpu_torch.models.unet import Attention
 from rangeldm_tpu_torch.ops.attention import (
-    KERNEL, attention_t_reference, fused_attention_t, max_seq_len,
+    BWD_KERNEL, KERNEL, attention_bwd_t_reference, attention_t_reference,
+    fused_attention_bwd_t, fused_attention_t, max_seq_len, max_seq_len_bwd,
 )
 
 pytestmark = pytest.mark.cuda
@@ -31,10 +34,10 @@ def _card():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _qkv(shape, dtype, seed=0):
+def _qkv(shape, dtype, seed=0, n=3):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda", dtype=dtype)
-            for _ in range(3)]
+            for _ in range(n)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -88,3 +91,97 @@ def test_unet_through_the_kernel():
         assert kernels.LAUNCHES[KERNEL] - before == 16
         want = plain(x, torch.tensor([10, 900], device="cuda"))
     torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 8, 1024), (128, 8, 256),
+                                   (128, 8, 64), (5, 8, 200), (3, 8, 1),
+                                   (2, 8, 2048)])
+def test_bwd_kernel_matches_plain_version(shape, dtype):
+    """The flagship shapes at batch 4, ragged T, T = 1 and a long T."""
+    q, k, v, g = _qkv(shape, dtype, seed=1, n=4)
+    before = kernels.LAUNCHES[BWD_KERNEL]
+    got = fused_attention_bwd_t(q, k, v, g, 0.3)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[BWD_KERNEL] == before + 1
+    want = attention_bwd_t_reference(q, k, v, g, 0.3)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+        else:
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= 3e-2 * b.float().abs().max().item(), err
+
+
+def test_bwd_kernel_rejects_what_it_does_not_take():
+    q = torch.zeros(2, 8, 16, device="cuda")
+    with pytest.raises(TypeError):
+        fused_attention_bwd_t(*[q.half()] * 4, 1.0)
+    with pytest.raises(TypeError):
+        fused_attention_bwd_t(q, q, q, q.to(torch.bfloat16), 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        fused_attention_bwd_t(q, q, q, torch.zeros(2, 8, 17, device="cuda"),
+                              1.0)
+    with pytest.raises(ValueError, match="head_dim"):
+        fused_attention_bwd_t(*[torch.zeros(2, 16, 16, device="cuda")] * 4,
+                              1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(2, 16, 8, device="cuda").transpose(1, 2)
+        fused_attention_bwd_t(q, q, q, t, 1.0)
+    with pytest.raises(ValueError, match="limit"):
+        long = torch.zeros(1, 8, max_seq_len_bwd(torch.float32) + 1,
+                           device="cuda")
+        fused_attention_bwd_t(long, long, long, long, 1.0)
+
+
+@pytest.mark.parametrize("channels,hw", [(128, (16, 64)), (256, (8, 32))])
+def test_attention_block_gradients_through_the_kernels(channels, hw):
+    """The Attention block's parameter and input gradients through
+    `FusedAttention` (both kernels) against the same block on the einsum
+    path, f32 with TF32 off, at the flagship's T = 1024 and 256. Each
+    tensor within 1e-4 of its largest entry plus 1e-6 of the block's
+    largest gradient (to_k.bias has an exact gradient of zero)."""
+    torch.manual_seed(0)
+    fused = Attention(channels, use_fused=None).cuda()
+    plain = Attention(channels, use_fused=False).cuda()
+    plain.load_state_dict(fused.state_dict())
+    h, w = hw
+    x, ct = _qkv((2, channels, w, h), torch.float32, seed=2, n=2)
+    grads = []
+    for blk in (fused, plain):
+        xx = x.clone().requires_grad_(True)
+        before = (kernels.LAUNCHES[KERNEL], kernels.LAUNCHES[BWD_KERNEL])
+        (blk(xx) * ct).sum().backward()
+        torch.cuda.synchronize()
+        launched = (kernels.LAUNCHES[KERNEL] - before[0],
+                    kernels.LAUNCHES[BWD_KERNEL] - before[1])
+        assert launched == ((1, 1) if blk is fused else (0, 0))
+        grads.append({"x": xx.grad,
+                      **{n: p.grad for n, p in blk.named_parameters()}})
+    got, want = grads
+    floor = 1e-6 * max(g.abs().max().item() for g in want.values())
+    for name, ref in want.items():
+        assert got[name] is not None, name
+        err = (got[name] - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item() + floor, (name, err)
+
+
+def test_unet_backward_through_the_kernels():
+    """One training backward of a narrow flagship-grammar UNet in bf16
+    under autocast: 16 forward and 16 backward launches, finite gradients
+    for every parameter."""
+    cfg = UNetConfig(sample_size=(16, 64), block_out_channels=(32, 32, 64,
+                                                               64))
+    torch.manual_seed(0)
+    model = UNet2D(cfg).cuda().train()
+    x = torch.randn(2, 5, 64, 16, device="cuda")
+    kernels.reset_launches()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = model(x, torch.tensor([10, 900], device="cuda"))
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[KERNEL] == 16
+    assert kernels.LAUNCHES[BWD_KERNEL] == 16
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
