@@ -5,11 +5,13 @@
 
 Phases, each printing one JSON line:
   1. device    - require CUDA; the card's name and power limit; TF32 off
-  2. build     - compile every CUDA kernel from rangeldm_tpu_torch/csrc/
+  2. build     - compile every CUDA kernel from rangeldm_tpu_torch/csrc/;
+                 ptxas must report no spill stores for the bf16 kernels
   3. kernels   - each kernel against its plain PyTorch version at the
                  flagship shapes (batch 4 and the training batch 32), f32
-                 and bf16, with times, the bound and one PyTorch library
-                 call as a yardstick
+                 and bf16, two calls bit-identical, with times, the bound,
+                 the floor of the exponentials alone and one PyTorch
+                 library call as a yardstick
   4. unet      - one flagship-width UNet forward (f32) through the kernel
                  against the same UNet on the plain einsum path
   4b. unet_grad - one flagship-width UNet forward and backward (f32)
@@ -31,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -134,6 +137,16 @@ def attention_work(kernel, shape, dtype) -> tuple:
     return 10.0 * t * t * d * n, 7.0 * n * d * t * itemsize
 
 
+def ex2_floor_ms(kernel, shape, clock_hz: float) -> float:
+    """Least time of the call's exponentials alone: N T^2 per pass over the
+    keys that forms e (one in the forward, three in the backward), at 16
+    ex2 per SM per clock on every SM at the given SM clock."""
+    n, _, t = shape
+    count = (1 if kernel == "attention_fwd" else 3) * n * t * t
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return count / (sms * 16 * clock_hz) * 1e3
+
+
 def bound(flops: float, nbytes: float, dtype) -> tuple:
     """Least time in ms, the larger of operations over the dtype's peak and
     bytes over the memory rate, and which of the two it is."""
@@ -148,23 +161,54 @@ def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip())
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda,
+         max_sm_clock_mhz=clock_mhz, torch=torch.__version__,
+         cuda=torch.version.cuda,
          tf32="off (cudnn and matmul) for the f32 phases")
-    return smi
+    return smi, clock_mhz * 1e6
+
+
+# the tensor-core kernels, which must not spill registers
+MMA_KERNELS = ("attention_fwd_bf16", "attention_bwd_rows_bf16",
+               "attention_bwd_cols_bf16")
+
+
+def ptxas_table(report: str) -> dict:
+    """{mangled kernel name: {"registers": n, "spill_stores": n}} from
+    nvcc's -Xptxas -v report."""
+    table, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            table[name] = {}
+        for key, pattern in (("spill_stores", r"(\d+) bytes spill stores"),
+                             ("registers", r"Used (\d+) registers")):
+            m = re.search(pattern, line)
+            if m and name:
+                table[name][key] = int(m.group(1))
+    return table
 
 
 def phase_build(kernels):
     t0 = time.perf_counter()
     reports = kernels.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in out.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, out in reports.items()}
+    ptxas = {}
+    for out in reports.values():
+        ptxas.update(ptxas_table(out))
     emit("build", seconds=round(seconds, 3), ptxas=ptxas)
+    for kernel in MMA_KERNELS:
+        found = [v for k, v in ptxas.items() if kernel in k]
+        require(len(found) == 1 and found[0].get("spill_stores") == 0,
+                f"ptxas: {kernel} not built or spills registers: {found}")
 
 
 def _shapes(batch):
@@ -189,7 +233,7 @@ def _close(kernel, got, want, dtype) -> tuple:
                     for a, b in zip(got, want))
 
 
-def phase_kernels(attention):
+def phase_kernels(attention, clock_hz: float):
     """Each kernel at the flagship shapes of sampling (batch 4) and training
     (batch 32), plus a ragged T, against its plain version; times of the
     kernel, the plain version and one PyTorch call (SDPA forward, or the
@@ -232,13 +276,14 @@ def phase_kernels(attention):
                 def library():
                     return torch.autograd.grad(out, leaves, gs,
                                                retain_graph=True)
-            got = run()
-            got = got if isinstance(got, tuple) else (got,)
+            got, again = (res if isinstance(res, tuple) else (res,)
+                          for res in (run(), run()))
             want = plain()
             want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
             err, ok = _close(kernel, got, want, dtype)
-            del got, want
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            del got, again, want
             ms = cuda_ms(run, 20)
             plain_ms = cuda_ms(plain, 5)
             library_ms = cuda_ms(library, 20)
@@ -247,12 +292,16 @@ def phase_kernels(attention):
             row = dict(kernel=kernel, batch=batch, shape=list(shape),
                        dtype=str(dtype).split(".")[1],
                        layers_per_unet_forward=layers, max_abs_err=err,
-                       ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                       bytes=nbytes)
+                       deterministic=same, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by,
+                       ex2_floor_ms=ex2_floor_ms(kernel, shape, clock_hz),
+                       flops=flops, bytes=nbytes)
             emit("kernels", **row)
             require(ok, f"{kernel} disagrees with its plain version at "
                         f"{shape} {dtype}: max abs err {err}")
+            require(same, f"two calls of {kernel} at {shape} {dtype} "
+                          f"differ")
             rows.append(row)
     return rows
 
@@ -525,9 +574,9 @@ def main() -> int:
     from rangeldm_tpu_torch import models
     from rangeldm_tpu_torch.ops import attention, kernels
 
-    smi = phase_device()
+    smi, clock_hz = phase_device()
     phase_build(kernels)
-    rows = phase_kernels(attention)
+    rows = phase_kernels(attention, clock_hz)
     phase_unet(kernels, models)
     phase_unet_grad(kernels, models)
     launches = {"attention_fwd": phase_main(kernels, models, smi)}

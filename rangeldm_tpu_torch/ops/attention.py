@@ -43,16 +43,27 @@ def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+def _max_padded(bytes_per_key: int) -> int:
+    """Longest T whose staged operands fit in one block's shared memory
+    when the bf16 kernels pad each row to whole 16-key tiles plus 8 keys
+    (`padded_stride` in csrc/attention_tile.cuh)."""
+    return (_SMEM_BYTES // bytes_per_key - 8) // 16 * 16
+
+
 def max_seq_len(dtype: torch.dtype) -> int:
     """Longest T the forward kernel takes: the head's K and V must fit in
-    the shared memory of one block."""
+    the shared memory of one block (padded rows in bf16)."""
+    if dtype == torch.bfloat16:
+        return _max_padded(2 * HEAD_DIM * 2)
     return _SMEM_BYTES // (2 * HEAD_DIM * _itemsize(dtype))
 
 
 def max_seq_len_bwd(dtype: torch.dtype) -> int:
     """Longest T the backward kernel takes: its second launch holds the
     head's Q, G and G / rowsum in the dtype, plus three f32 row statistics,
-    in the shared memory of one block."""
+    in the shared memory of one block (padded rows in bf16)."""
+    if dtype == torch.bfloat16:
+        return _max_padded(3 * HEAD_DIM * 2 + 3 * 4)
     return _SMEM_BYTES // (3 * HEAD_DIM * _itemsize(dtype) + 3 * 4)
 
 

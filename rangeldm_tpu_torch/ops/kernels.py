@@ -3,8 +3,9 @@
 Every `csrc/*.cu` file is compiled with nvcc into a shared library with a
 plain C interface and loaded with ctypes. The build happens at first use
 (or ahead of it, through `build_all`) into `rangeldm_tpu_torch/_build/`,
-one library per source, named after a hash of the source and the flags so
-that an edited source is rebuilt. Nothing here runs at import time.
+one library per source, named after a hash of the source, the headers
+and the flags, so that an edited source or header is rebuilt. Nothing here
+runs at import time.
 
 `LAUNCHES` counts kernel launches by kernel name; each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show which
@@ -51,22 +52,27 @@ def _nvcc() -> str:
 
 
 def _target(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+    """The library of one source, named after a hash of the source, every
+    csrc/*.cuh header (any of them may be included) and the flags."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: List[str] = None) -> Dict[str, str]:
     """Compile the named sources (default: every csrc/*.cu) that are not
     built yet, one nvcc process per source, all started together. Returns
-    each source's ptxas report (registers, shared memory, spills)."""
+    each source's ptxas report (registers, shared memory, spills), kept
+    beside its library, so a source built earlier reports too."""
     sources = sorted(CSRC.glob("*.cu")) if names is None else [
         CSRC / f"{n}.cu" for n in names]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for src in sources:
         target = _target(src)
-        if target.exists():
+        if target.exists() and target.with_suffix(".log").exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -74,15 +80,15 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[src.stem] = (proc, tmp, target)
-    reports = {}
     for name, (proc, tmp, target) in jobs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed on {name}.cu:\n{out}")
+        target.with_suffix(".log").write_text(out)
         os.replace(tmp, target)
-        reports[name] = out
-    return reports
+    return {src.stem: _target(src).with_suffix(".log").read_text()
+            for src in sources}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -40,11 +40,22 @@ def _qkv(shape, dtype, seed=0, n=3):
             for _ in range(n)]
 
 
+# the flagship shapes at batch 4, ragged T, T = 1, a long T; then one head
+# at every tile edge of the bf16 kernels (16-wide tiles, 64 rows a block)
+# and at the longest T each kernel takes for the dtype ("max")
+SHAPES = [(64, 8, 1024), (128, 8, 256), (128, 8, 64), (5, 8, 200), (3, 8, 1),
+          (2, 8, 2048)] + [(1, 8, t) for t in (1, 15, 16, 17, 63, 65, 200,
+                                              1024, 2048)] + ["max"]
+
+
+def _shape(shape, limit):
+    return (1, 8, limit) if shape == "max" else shape
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(64, 8, 1024), (128, 8, 256),
-                                   (128, 8, 64), (5, 8, 200), (3, 8, 1),
-                                   (2, 8, 2048)])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_kernel_matches_plain_version(shape, dtype):
+    shape = _shape(shape, max_seq_len(dtype))
     q, k, v = _qkv(shape, dtype)
     before = kernels.LAUNCHES[KERNEL]
     got = fused_attention_t(q, k, v, 0.3)
@@ -94,11 +105,10 @@ def test_unet_through_the_kernel():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(64, 8, 1024), (128, 8, 256),
-                                   (128, 8, 64), (5, 8, 200), (3, 8, 1),
-                                   (2, 8, 2048)])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_bwd_kernel_matches_plain_version(shape, dtype):
-    """The flagship shapes at batch 4, ragged T, T = 1 and a long T."""
+    """The shapes of the forward's test, with the backward's longest T."""
+    shape = _shape(shape, max_seq_len_bwd(dtype))
     q, k, v, g = _qkv(shape, dtype, seed=1, n=4)
     before = kernels.LAUNCHES[BWD_KERNEL]
     got = fused_attention_bwd_t(q, k, v, g, 0.3)
@@ -112,6 +122,18 @@ def test_bwd_kernel_matches_plain_version(shape, dtype):
         else:
             err = (a.float() - b.float()).abs().max().item()
             assert err <= 3e-2 * b.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 8, 1024), (5, 8, 200), (1, 8, 17)])
+def test_kernels_are_deterministic(shape, dtype):
+    """No atomics and one writer per output: two calls of each kernel on
+    the same inputs give bit-identical outputs."""
+    q, k, v, g = _qkv(shape, dtype, seed=3, n=4)
+    outs = [(fused_attention_t(q, k, v, 0.3),
+             *fused_attention_bwd_t(q, k, v, g, 0.3)) for _ in range(2)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_bwd_kernel_rejects_what_it_does_not_take():
