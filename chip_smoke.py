@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
   2. build     - compile every CUDA kernel from rangeldm_tpu_torch/csrc/;
                  ptxas must report no spill stores for the bf16 kernels
   3. kernels   - each kernel against its plain PyTorch version at the
-                 flagship shapes (batch 4 and the training batch 32), f32
+                 flagship shapes (batch 4, the conditional CLI's batch 8
+                 and the training batch 32), f32
                  and bf16, two calls bit-identical, with times, the bound,
                  the floor of the exponentials alone and one PyTorch
                  library call as a yardstick
@@ -24,6 +25,16 @@ Phases, each printing one JSON line:
   6. train     - LdmTrainer on the shipped flagship config (batch 32, bf16)
                  for 10 fit steps on seeded synthetic range images, then
                  save_final, RangePipeline.from_pretrained and a sample
+  7. conditional - a synthetic KITTI-360 root (8 held-out and 160 train
+                 scans of 120,000 points, made from SEED) read by the
+                 port's loader, cold and warm; for each of the full-width
+                 upsample and inpainting models with seeded random weights:
+                 RangePipeline.upsample / .inpaint at batch 4 with DDIM-50
+                 on conditions from the dataset, then sample_conditional.main
+                 on the held-out scans and the MAE metrics of its triplets
+  8. cond_train - LdmTrainer on the shipped upsample config (batch 32, bf16)
+                 for 5 steps, one epoch of the port's RangeLoader over the
+                 train drive, then save_final, reload and a 2-step upsample
 Then the kernel summary line, the card line, and the result line. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -55,6 +66,11 @@ BATCH = 4
 TRAIN_BATCH = 32
 TRAIN_STEPS = 10
 SEED = 0
+SCAN_POINTS = 120_000          # about one HDL-64E scan
+HELD_OUT_SCANS = 8             # in 2013_05_28_drive_0000_sync, the test split
+TRAIN_SCANS = 160              # in a train drive: five batches of 32
+CLI_BATCH = 8                  # sample_conditional's default batch
+COND_TRAIN_STEPS = 5            # one epoch of the train drive
 # (heads, T) of the flagship UNet's attention layers, with the number of
 # such layers in one forward; N = batch * heads. One ragged case (N, 8, 200)
 # lies off the main path.
@@ -97,6 +113,42 @@ TRAIN_CFG = {
     "save_images_epochs": 1,
     "save_model_epochs": 10,
     "eval_batch_size": 16,
+    "mixed_precision": "bf16",
+}
+
+# rangeldm_tpu/configs/upsample.yaml and inpainting.yaml, the shipped
+# conditional training configs, with the same 2-step warm-up; output_dir
+# and data.root are set at run time
+UPSAMPLE_CFG = {
+    "model": "rangeldm_upsample",
+    "output_dir": None,
+    "data": {"sensor": "kitti360", "root": None, "downsample": 4},
+    "train_batch_size": 32,
+    "num_epochs": 1000,
+    "learning_rate": 1.0e-4,
+    "lr_warmup_steps": 2,
+    "with_vae": True,
+    "vae_checkpoint": None,
+    "upsample": 4,
+    "inpainting": None,
+    "ddim": True,
+    "ddpm_num_inference_steps": 50,
+    "mixed_precision": "bf16",
+}
+INPAINT_CFG = {
+    "model": "rangeldm_inpainting",
+    "output_dir": None,
+    "data": {"sensor": "kitti360", "root": None, "inpainting": 0.0625},
+    "train_batch_size": 32,
+    "num_epochs": 1000,
+    "learning_rate": 1.0e-4,
+    "lr_warmup_steps": 2,
+    "with_vae": True,
+    "vae_checkpoint": None,
+    "upsample": None,
+    "inpainting": 0.0625,
+    "ddim": True,
+    "ddpm_num_inference_steps": 50,
     "mixed_precision": "bf16",
 }
 
@@ -234,14 +286,15 @@ def _close(kernel, got, want, dtype) -> tuple:
 
 
 def phase_kernels(attention, clock_hz: float):
-    """Each kernel at the flagship shapes of sampling (batch 4) and training
-    (batch 32), plus a ragged T, against its plain version; times of the
+    """Each kernel at the flagship shapes of sampling (batch 4), the
+    conditional CLI (batch 8) and training (batch 32), plus a ragged T,
+    against its plain version; times of the
     kernel, the plain version and one PyTorch call (SDPA forward, or the
     autograd backward of SDPA) on the same inputs."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [(kernel, batch, shape, layers)
              for kernel in ("attention_fwd", "attention_bwd")
-             for batch in (BATCH, TRAIN_BATCH)
+             for batch in (BATCH, CLI_BATCH, TRAIN_BATCH)
              for shape, layers in _shapes(batch)]
     cases += [(kernel, 0, RAGGED_SHAPE, 0)
               for kernel in ("attention_fwd", "attention_bwd")]
@@ -536,6 +589,221 @@ def phase_train(kernels, smi):
     return launches
 
 
+def synthetic_scan(rng, n: int) -> np.ndarray:
+    """A KITTI-360-like (N, 4) scan: points at random azimuths and ranges,
+    zeniths in the HDL-64E's field of view, random intensities."""
+    azi = rng.uniform(-np.pi, np.pi, n)
+    r = rng.uniform(2.5, 80.0, n)
+    zen = rng.uniform(-0.43, 0.03, n)
+    return np.stack([r * np.cos(zen) * np.cos(azi),
+                     r * np.cos(zen) * np.sin(azi), r * np.sin(zen),
+                     rng.uniform(0.0, 1.0, n)], axis=1).astype(np.float32)
+
+
+def make_kitti_root(root: str) -> str:
+    """The velodyne_points/data/*.bin layout of KITTI-360's raw scans, with
+    HELD_OUT_SCANS scans in a held-out drive and TRAIN_SCANS in a train
+    drive."""
+    rng = np.random.default_rng(SEED)
+    for drive, count in (("2013_05_28_drive_0000_sync", HELD_OUT_SCANS),
+                         ("2013_05_28_drive_0003_sync", TRAIN_SCANS)):
+        d = os.path.join(root, "data_3d_raw", drive, "velodyne_points",
+                         "data")
+        os.makedirs(d)
+        for i in range(count):
+            synthetic_scan(rng, SCAN_POINTS).tofile(
+                os.path.join(d, f"{i:010d}.bin"))
+    return root
+
+
+def loader_rates(data, root: str) -> dict:
+    """Images per second of one RangeLoader pass (batch 8, 8 threads) over
+    the train drive's scans with a cold cache (projection and compressed
+    cache write) and then a warm one (cache reads)."""
+    ds = data.RangeImageDataset(data.DatasetConfig(root=root, downsample=4))
+    rates = {}
+    for name in ("cold", "warm"):
+        loader = data.RangeLoader(ds, batch_size=8, seed=SEED)
+        t0 = time.perf_counter()
+        n = sum(len(b["jpg"]) for b in loader)
+        rates[f"loader_{name}_images_per_s"] = n / (time.perf_counter() - t0)
+    require(n == TRAIN_SCANS, f"loader yielded {n} images")
+    return rates
+
+
+def _triplets(out: str, prefix: str) -> dict:
+    """The result, target and input arrays the conditional CLI wrote."""
+    arrays = {}
+    for sub in ("result", "target", "input"):
+        d = os.path.join(out, f"{prefix}_{sub}")
+        files = sorted(os.listdir(d))
+        want = sorted(f"{i}.npy" for i in range(CLI_BATCH))
+        require(files == want, f"sample_conditional wrote {files} in {d}")
+        arrays[sub] = np.stack([np.load(os.path.join(d, f"{i}.npy"))
+                                for i in range(CLI_BATCH)])
+    return arrays
+
+
+def phase_conditional(kernels, models, data_root: str, smi) -> int:
+    """Both full-width conditional models, through the pipeline API and the
+    conditional CLI on conditions from the port's dataset. Returns the
+    forward kernel's launches."""
+    from rangeldm_tpu_torch import data, sample_conditional
+    from rangeldm_tpu_torch.convert import save_diffusers_pipeline
+    from rangeldm_tpu_torch.metrics import densification_mae, inpainting_mae
+    from rangeldm_tpu_torch.pipelines import RangePipeline
+
+    rates = loader_rates(data, data_root)
+    emit("conditional", loader_batch=8, scan_points=SCAN_POINTS,
+         scans=TRAIN_SCANS, **rates)
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for spec in (models.rangeldm_upsample(),
+                     models.rangeldm_inpainting()):
+            mode = "upsample" if spec.cond_channels == 8 else "inpainting"
+            torch.manual_seed(SEED)
+            path = os.path.join(tmp, mode)
+            save_diffusers_pipeline(path, models.UNet2D(spec.unet),
+                                    models.AutoencoderKL(spec.vae),
+                                    dataclasses.asdict(spec.schedule))
+            pipe = RangePipeline.from_pretrained(path)
+            require(pipe.device.type == "cuda", f"{mode}: not on CUDA")
+            require(next(pipe._p["unet"].parameters()).dtype
+                    == torch.bfloat16, f"{mode}: not bf16 by default")
+            require(pipe.cond_channels == spec.cond_channels,
+                    f"{mode}: {pipe.cond_channels} condition channels")
+            ds = data.RangeImageDataset(
+                sample_conditional.conditional_dataset_config(
+                    pipe._p, data_root, "kitti360", mode, 4, 0.0625),
+                train=False)
+            batch = data.collate([ds[i] for i in range(BATCH)])
+
+            def call(steps):
+                if mode == "upsample":
+                    return pipe.upsample(batch["down"], steps, seed=SEED)
+                return pipe.inpaint(batch["masked_image"],
+                                    batch["inpainting_mask"], steps,
+                                    seed=SEED)
+
+            call(2)                                          # warm-up
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            images = call(50)
+            api_s = time.perf_counter() - t0
+            n_api = kernels.LAUNCHES["attention_fwd"]
+            require(images.shape == (BATCH, 64, 1024, 2),
+                    f"{mode}: image shape {images.shape}")
+            require(bool(np.isfinite(images).all()),
+                    f"{mode}: non-finite samples")
+            require(n_api == 16 * 50, f"{mode}: {n_api} kernel launches, "
+                                      f"expected {16 * 50}")
+
+            out = os.path.join(tmp, f"{mode}_samples")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            written = sample_conditional.main(
+                ["--pipeline", path, "--mode", mode, "--data", data_root,
+                 "--out", out, "--samples", str(CLI_BATCH)])
+            cli_s = time.perf_counter() - t0
+            n_cli = kernels.LAUNCHES["attention_fwd"]
+            require(written == CLI_BATCH, f"{mode}: CLI wrote {written}")
+            require(n_cli == 16 * 50, f"{mode}: the CLI launched the "
+                                      f"kernel {n_cli} times")
+            prefix = "densification" if mode == "upsample" else "inpainting"
+            arrays = _triplets(out, prefix)
+            res, tgt = arrays["result"][..., 0], arrays["target"][..., 0]
+            norm = dict(encoding="linear", mean=ds.spec.mean, std=ds.spec.std)
+            if mode == "upsample":
+                scores = densification_mae(res, tgt, factor=4, **norm)
+            else:
+                scores = {"mae": inpainting_mae(
+                    res, tgt, masked_columns=int(0.0625 * 1024), **norm)}
+            scores = {k: float(v) for k, v in scores.items()}
+            require(all(np.isfinite(v) for v in scores.values()),
+                    f"{mode}: MAE {scores}")
+            launches += n_api + n_cli
+            emit("conditional", mode=mode, dtype="bfloat16", card=smi,
+                 api_batch=BATCH, api_steps=50, api_seconds=api_s,
+                 api_samples_per_s=BATCH / api_s, api_launches=n_api,
+                 cli_batch=CLI_BATCH, cli_seconds=cli_s,
+                 cli_samples_per_s=CLI_BATCH / cli_s, cli_launches=n_cli,
+                 triplet_shapes={k: list(v.shape)
+                                 for k, v in arrays.items()},
+                 mae_m=scores)
+    return launches
+
+
+def phase_cond_train(kernels, data_root: str, smi) -> dict:
+    """LdmTrainer.fit on UPSAMPLE_CFG for COND_TRAIN_STEPS steps at batch
+    32 in bf16, fed by the port's RangeLoader over the train drive, then
+    save_final, reload and a 2-step upsample. Returns the launches of each
+    kernel in the fit."""
+    from rangeldm_tpu_torch import data
+    from rangeldm_tpu_torch.pipelines import RangePipeline
+    from rangeldm_tpu_torch.train_ldm import LdmTrainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dcfg = dict(UPSAMPLE_CFG["data"], root=data_root)
+        cfg = dict(UPSAMPLE_CFG, output_dir=os.path.join(tmp, "run"),
+                   data=dcfg)
+        trainer = LdmTrainer(cfg)
+        require(trainer.device.type == "cuda", "trainer is not on CUDA")
+        require(trainer.cond_fn is not None, "no condition")
+        ds = data.RangeImageDataset(data.DatasetConfig(
+            root=dcfg["root"], sensor=dcfg["sensor"],
+            downsample=cfg["upsample"]))
+        loader = data.RangeLoader(ds, batch_size=cfg["train_batch_size"],
+                                  seed=SEED)
+        require(len(loader) == COND_TRAIN_STEPS,
+                f"{len(loader)} batches an epoch")
+        batches = iter(loader)
+        params0 = [p.detach().clone() for p in trainer.unet.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        trainer.fit(batches, max_steps=COND_TRAIN_STEPS, log_every=1,
+                    loader=loader)
+        batches.close()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(cfg["output_dir"], "train_log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        require([r["step"] for r in log]
+                == list(range(1, COND_TRAIN_STEPS + 1)),
+                f"train log steps {[r['step'] for r in log]}")
+        require(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                    for r in log), f"non-finite loss or grad_norm: {log}")
+        moved = sum(not torch.equal(a, b)
+                    for a, b in zip(params0, trainer.unet.parameters()))
+        require(moved == len(params0), f"{moved} of {len(params0)} "
+                                       f"parameters changed")
+        for kernel in ("attention_fwd", "attention_bwd"):
+            require(launches.get(kernel) == 16 * COND_TRAIN_STEPS,
+                    f"fit launched {kernel} {launches.get(kernel)} times, "
+                    f"expected {16 * COND_TRAIN_STEPS}")
+        elapsed = [r["step"] / r["sps"] for r in log]
+        steady = (COND_TRAIN_STEPS - 1) / (elapsed[-1] - elapsed[0])
+
+        pipe = RangePipeline.from_pretrained(trainer.save_final())
+        require(pipe.cond_channels == 8,
+                f"reloaded pipeline: {pipe.cond_channels} condition channels")
+        down = data.collate([ds[i] for i in range(BATCH)])["down"]
+        images = pipe.upsample(down, num_inference_steps=2, seed=SEED)
+        require(images.shape == (BATCH, 64, 1024, 2) and
+                bool(np.isfinite(images).all()),
+                f"upsample from the trained pipeline: {images.shape}")
+    emit("cond_train", config="upsample", dtype="bfloat16",
+         batch=cfg["train_batch_size"], steps=COND_TRAIN_STEPS, card=smi,
+         losses=[r["loss"] for r in log],
+         grad_norms=[r["grad_norm"] for r in log],
+         data_wait_frac=[r["data_wait_frac"] for r in log],
+         steps_per_s=steady, samples_per_s=steady * TRAIN_BATCH,
+         first_step_s=elapsed[0], peak_memory_gib=peak_gib,
+         launches=launches)
+    return launches
+
+
 def summary(rows, launches):
     """One entry per kernel, over the attention layers of one flagship UNet
     in bf16 at the batch of the path that carries it most: the forward at
@@ -570,6 +838,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rangeldm_tpu_torch import models
     from rangeldm_tpu_torch.ops import attention, kernels
@@ -581,8 +850,16 @@ def main() -> int:
     phase_unet_grad(kernels, models)
     launches = {"attention_fwd": phase_main(kernels, models, smi)}
     trained = phase_train(kernels, smi)
-    launches["attention_fwd"] += trained["attention_fwd"]
-    launches["attention_bwd"] = trained["attention_bwd"]
+    with tempfile.TemporaryDirectory() as tmp:
+        data_root = make_kitti_root(os.path.join(tmp, "kitti360"))
+        launches["attention_fwd"] += phase_conditional(kernels, models,
+                                                       data_root, smi)
+        cond_trained = phase_cond_train(kernels, data_root, smi)
+    launches["attention_fwd"] += (trained["attention_fwd"]
+                                  + cond_trained["attention_fwd"])
+    launches["attention_bwd"] = (trained["attention_bwd"]
+                                 + cond_trained["attention_bwd"])
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps(summary(rows, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 from rangeldm_tpu_torch.geometry.sensors import (  # noqa: F401
-    SensorSpec, get_spec, kitti360_spec, nuscenes_spec,
+    SensorSpec, get_spec, kitti360_spec, kitti360_vanilla_spec,
+    nuscenes_spec, stf_spec,
 )
 from rangeldm_tpu_torch.geometry.projection import (  # noqa: F401
-    decode_range, encode_range,
+    decode_log_range, decode_range, encode_range, project_np, range_image_np,
 )
 from rangeldm_tpu_torch.geometry.inverse import (  # noqa: F401
     to_point_cloud, to_point_cloud_masked,

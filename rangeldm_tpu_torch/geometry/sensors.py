@@ -3,7 +3,9 @@
 The tables are physical calibration constants: the KITTI-360 HDL-64E table
 is the output of RangeLDM's Hough-voting beam-origin estimation
 (ldm/kitti360_range_image.py:19-47) and the nuScenes HDL-32E table comes
-from ldm/nuscenes_range_image.py:20-33. Plain numpy, so the package can use
+from ldm/nuscenes_range_image.py:20-33; the SeeingThroughFog table from
+vae/sgm/data/STF_range_image.py:19-47. The "vanilla" spec is LiDARGen-style
+uniform zenith binning (+3..-25 degrees). Plain numpy, so the package can use
 them without any other dependency.
 """
 
@@ -68,6 +70,57 @@ _NUSCENES_ZENITH = np.array(
     dtype=np.float32)
 
 
+# SeeingThroughFog 64-beam HDL64-S3 (vae/sgm/data/STF_range_image.py:19-47).
+_STF_HEIGHT = np.array(
+    [0.20428571, 0.20534247, 0.20551859, 0.20587084, 0.20587084,
+     0.20604697, 0.20675147, 0.20745597, 0.20763209, 0.20710372,
+     0.20727984, 0.2090411, 0.20956947, 0.20921722, 0.21080235,
+     0.20992172, 0.21027397, 0.20921722, 0.21238748, 0.21273973,
+     0.21414873, 0.21379648, 0.21520548, 0.21168297, 0.2153816,
+     0.21749511, 0.22101761, 0.21432485, 0.22101761, 0.21626223,
+     0.21714286, 0.21908023, 0.14510763, 0.1435225, 0.14845401,
+     0.14827789, 0.14863014, 0.14933464, 0.14898239, 0.15303327,
+     0.15320939, 0.15320939, 0.15514677, 0.15655577, 0.15426614,
+     0.15690802, 0.15585127, 0.15902153, 0.15990215, 0.16131115,
+     0.16078278, 0.16448141, 0.16395303, 0.16712329, 0.16694716,
+     0.16958904, 0.17046967, 0.17293542, 0.17240705, 0.17434442,
+     0.1741683, 0.17786693, 0.17857143, 0.18103718], dtype=np.float32)
+
+_STF_ZENITH = np.array(
+    [0.03336595, 0.02749511, 0.02162427, 0.01575342, 0.00890411,
+     0.00401174, -0.0018591, -0.00870841, -0.01360078, -0.01947162,
+     -0.02632094, -0.03219178, -0.03806262, -0.04295499, -0.04980431,
+     -0.05469667, -0.06154599, -0.06741683, -0.07426614, -0.07915851,
+     -0.08502935, -0.0909002, -0.09774951, -0.10264188, -0.10949119,
+     -0.11634051, -0.12221135, -0.12612524, -0.13297456, -0.1388454,
+     -0.14471624, -0.14863014, -0.15450098, -0.16428571, -0.1721135,
+     -0.17994129, -0.18874755, -0.19951076, -0.20831703, -0.21908023,
+     -0.22592955, -0.23473581, -0.24158513, -0.25430528, -0.26213307,
+     -0.27191781, -0.27876712, -0.28757339, -0.29540117, -0.30812133,
+     -0.31692759, -0.3276908, -0.3316047, -0.34334638, -0.35019569,
+     -0.36193738, -0.37074364, -0.38150685, -0.38835616, -0.39618395,
+     -0.40401174, -0.4167319, -0.42455969, -0.43434442], dtype=np.float32)
+
+
+def _vanilla_tables(n_beams: int = 64,
+                    fov_up_deg: float = 3.0,
+                    fov_down_deg: float = -25.0):
+    """LiDARGen-style uniform zenith bins (ldm/kitti360_range_image_vanilla.py:20-32).
+
+    Beam i covers zenith bin i (top = +fov_up); origin height is 0 for all
+    beams. The bin *centers* serve as the inclination table for inverse
+    projection.
+    """
+    fov_up = fov_up_deg / 180.0 * np.pi
+    fov_down = fov_down_deg / 180.0 * np.pi
+    fov = abs(fov_up) + abs(fov_down)
+    # pitch of row i (row 0 = top): uniform grid of centers
+    centers = fov_up - (np.arange(n_beams, dtype=np.float32) + 0.5) / n_beams * fov
+    zenith = centers.astype(np.float32)
+    height = np.zeros(n_beams, dtype=np.float32)
+    return height, zenith, fov_up, fov_down
+
+
 @dataclasses.dataclass(frozen=True)
 class SensorSpec:
     """Geometry of one LiDAR sensor plus the range-image encoding
@@ -119,7 +172,26 @@ def nuscenes_spec(width: int = 1024, **kw) -> SensorSpec:
                       height=_NUSCENES_HEIGHT, zenith=_NUSCENES_ZENITH, **kw)
 
 
-SPECS = {"kitti360": kitti360_spec, "nuscenes": nuscenes_spec}
+def kitti360_vanilla_spec(width: int = 1024, **kw) -> SensorSpec:
+    height, zenith, fov_up, fov_down = _vanilla_tables()
+    return SensorSpec(name="kitti360_vanilla", n_beams=64, width=width,
+                      row_mode="uniform", fov_up=fov_up, fov_down=fov_down,
+                      height=height, zenith=zenith, **kw)
+
+
+def stf_spec(width: int = 1024, **kw) -> SensorSpec:
+    """SeeingThroughFog 64-beam sensor: ring-indexed rows (63 - ring) with
+    its own calibration tables (vae/sgm/data/STF_range_image.py:15-53)."""
+    return SensorSpec(name="stf", n_beams=64, width=width, row_mode="ring",
+                      height=_STF_HEIGHT, zenith=_STF_ZENITH, **kw)
+
+
+SPECS = {
+    "kitti360": kitti360_spec,
+    "nuscenes": nuscenes_spec,
+    "kitti360_vanilla": kitti360_vanilla_spec,
+    "stf": stf_spec,
+}
 
 
 def get_spec(name: str, **kw) -> SensorSpec:

@@ -201,3 +201,23 @@ class VaeUpsample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = upsample_nearest(x)
         return self.conv(x) if hasattr(self, "conv") else x
+
+
+def pixel_unshuffle_azimuth(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
+    """Function form of PixelUnshuffleAzimuth: (B, C, W, H) ->
+    (B, factor*C, W/factor, H), output channel local_azimuth * C + c."""
+    b, c, w, h = x.shape
+    x = x.reshape(b, c, w // factor, factor, h).permute(0, 3, 1, 2, 4)
+    return x.reshape(b, factor * c, w // factor, h)
+
+
+class PixelUnshuffleAzimuth(nn.Module):
+    """SparseRangeImageEncoder2 (ldm/encoders.py:86-95): the parameter-free
+    azimuth pixel unshuffle of the beam-subsampled image to latent width."""
+
+    def __init__(self, factor: int = 4):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return pixel_unshuffle_azimuth(x, self.factor)

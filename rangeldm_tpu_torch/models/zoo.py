@@ -63,11 +63,42 @@ def rangeldm_nuscenes() -> ModelSpec:
     )
 
 
-# the unconditional configurations; the conditional ones (upsample,
-# inpainting) come with conditional sampling and training
+def rangeldm_upsample() -> ModelSpec:
+    """ldm/configs/upsample.yaml: 4x beam densification; the condition is
+    the 8-channel pixel unshuffle of the 16-beam image
+    (ldm/train_conditional.py:236)."""
+    return ModelSpec(
+        name="rangeldm_upsample",
+        unet=UNetConfig(sample_size=(16, 256), in_channels=12, out_channels=4,
+                        **_ATTN4),
+        vae=VaeConfig(),
+        image_size=(64, 1024),
+        pos_encoding=False,
+        cond_channels=8,
+    )
+
+
+def rangeldm_inpainting() -> ModelSpec:
+    """ldm/configs/inpainting.yaml: azimuth-sector inpainting; the condition
+    is the masked image's latent (4 channels) and the resized mask (1)."""
+    return ModelSpec(
+        name="rangeldm_inpainting",
+        unet=UNetConfig(sample_size=(16, 256), in_channels=9, out_channels=4,
+                        **_ATTN4),
+        vae=VaeConfig(),
+        image_size=(64, 1024),
+        pos_encoding=False,
+        cond_channels=5,
+    )
+
+
+# every configuration but pixel-space RangeDM (rangedm_kitti360), which
+# comes with the pixel-diffusion slice
 ZOO = {
     "rangeldm_kitti360": rangeldm_kitti360,
     "rangeldm_nuscenes": rangeldm_nuscenes,
+    "rangeldm_upsample": rangeldm_upsample,
+    "rangeldm_inpainting": rangeldm_inpainting,
 }
 
 

@@ -6,8 +6,13 @@ reference's diffusers pipelines (ldm/pipelines.py):
     images = pipe(batch_size=16, num_inference_steps=50, seed=0)
     clouds = pipe.to_point_clouds(images)
 
-Loads released diffusers-layout directories. Unconditional sampling only;
-images are returned as float32 numpy arrays (B, H, W, C).
+    up = RangePipeline.from_pretrained("runs/upsample/pipeline")
+    dense = up.upsample(sparse_images)          # 4x beam densification
+    inp = RangePipeline.from_pretrained("runs/inpainting/pipeline")
+    filled = inp.inpaint(masked_images, masks)  # azimuth-sector inpainting
+
+Loads released diffusers-layout directories. Images go in and come out as
+float32 numpy arrays (B, H, W, C).
 """
 
 from __future__ import annotations
@@ -19,8 +24,8 @@ import torch
 
 from rangeldm_tpu_torch.geometry.inverse import to_point_cloud_masked
 from rangeldm_tpu_torch.geometry.sensors import SensorSpec, get_spec
-# a module reference, not names: sample_ldm imports this package in turn
-from rangeldm_tpu_torch import sample_ldm
+# module references, not names: both import this package in turn
+from rangeldm_tpu_torch import sample_conditional, sample_ldm
 
 
 class RangePipeline:
@@ -49,6 +54,19 @@ class RangePipeline:
     @property
     def device(self) -> torch.device:
         return self._p["device"]
+
+    @property
+    def unet_config(self):
+        return self._p["unet_cfg"]
+
+    @property
+    def is_latent(self) -> bool:
+        return self._p["vae"] is not None
+
+    @property
+    def vae_down_factor(self) -> int:
+        """The image -> latent factor of the VAE (2 per down level)."""
+        return self._p["vae_cfg"].down_factor if self.is_latent else 1
 
     @property
     def cond_channels(self) -> int:
@@ -85,8 +103,9 @@ class RangePipeline:
         returns the decoded state before every step,
         (num_steps, B, H, W, C)."""
         if self.cond_channels > 0:
-            raise ValueError("conditional pipelines (upsample / inpaint) "
-                             "are not supported by this package yet")
+            raise ValueError(f"this pipeline is conditional "
+                             f"({self.cond_channels} condition channels): "
+                             f"use .upsample() / .inpaint()")
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         sample = sample_ldm.build_sampler(self._p, batch_size,
@@ -96,6 +115,53 @@ class RangePipeline:
         if final_only:
             return out.float().cpu().numpy()
         return tuple(u.float().cpu().numpy() for u in out)
+
+    # -- conditional generation ----------------------------------------
+    def _cond_sample(self, cond_inputs: dict, mode: str, num_steps: int,
+                     seed: int, generator: Optional[torch.Generator],
+                     factor: int, method: str) -> np.ndarray:
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+        batch = len(next(iter(cond_inputs.values())))
+        sample = sample_conditional.build_conditional_sampler(
+            self._p, batch, mode, num_steps, factor, method=method)
+        return sample(generator, cond_inputs).float().cpu().numpy()
+
+    def upsample(self, sparse_images, num_inference_steps: int = 50,
+                 seed: int = 0, generator: Optional[torch.Generator] = None,
+                 factor: Optional[int] = None,
+                 method: str = "ddim") -> np.ndarray:
+        """Beam densification (LDMUpscalePipelineRange with the
+        SparseRangeImageEncoder2 condition): sparse (B, H/f, W, C) -> dense
+        (B, H, W, C). `factor` defaults to cond_channels / C and must give
+        exactly the model's condition channels, factor * C
+        (ldm/encoders.py:86-95)."""
+        c = np.shape(sparse_images)[-1]
+        if factor is None:
+            factor = max(self.cond_channels // c, 1)
+        if factor * c != self.cond_channels:
+            want = (self.cond_channels // c if self.cond_channels % c == 0
+                    else self.cond_channels / c)
+            raise ValueError(
+                f"upsample factor {factor} x {c} input channels != the "
+                f"model's {self.cond_channels} condition channels; this "
+                f"model expects factor={want} or a different input channel "
+                f"count (used_feature)")
+        return self._cond_sample({"down": sparse_images}, "upsample",
+                                 num_inference_steps, seed, generator,
+                                 factor, method)
+
+    def inpaint(self, masked_images, masks, num_inference_steps: int = 50,
+                seed: int = 0, generator: Optional[torch.Generator] = None,
+                method: str = "ddim") -> np.ndarray:
+        """Azimuth-sector inpainting: the masked image's latent and the
+        mask resized to the latent grid condition the UNet
+        (ldm/pipelines.py:406-412). masked_images (B, H, W, C), masks
+        (B, H, W, 1), +1 where masked and -1 where kept."""
+        return self._cond_sample(
+            {"masked_image": masked_images, "inpainting_mask": masks},
+            "inpainting", num_inference_steps, seed, generator,
+            self.vae_down_factor, method)
 
     def to_point_clouds(self, images,
                         max_depth: float = 90.0) -> List[np.ndarray]:

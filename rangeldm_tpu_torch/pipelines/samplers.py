@@ -156,3 +156,18 @@ def latent_sample(model_fn, vae_decode: Callable, schedule: Schedule,
     traj_images = torch.stack([to_bhwc(vae_decode(z / scaling_factor))
                                for z in traj])
     return image, traj_images
+
+
+def conditional_latent_sample(model_fn, vae_decode: Callable,
+                              schedule: Schedule,
+                              latent_shape: Tuple[int, ...],
+                              scaling_factor: float, cond: torch.Tensor,
+                              generator: Optional[torch.Generator] = None,
+                              num_steps: int = 50, pos_encoding: bool = False,
+                              **kw):
+    """`latent_sample` with the condition (B, C_cond, W, H) mandatory and
+    no pos channel by default (upsampling and inpainting,
+    ldm/inference_conditional.py:160-170)."""
+    return latent_sample(model_fn, vae_decode, schedule, latent_shape,
+                         scaling_factor, generator, num_steps=num_steps,
+                         pos_encoding=pos_encoding, cond=cond, **kw)

@@ -7,15 +7,18 @@ ldm/train_unconditional.py):
     path = trainer.save_final()            # a diffusers-layout pipeline
 
 `cfg` is a nested dict (or `Cfg`) with the keys of the JAX package's YAML
-configs (rangeldm_tpu/configs/rangeldm_kitti360.yaml): a zoo `model:` or an
-inline `model_config:` / `vae_config:`, the optimizer, schedule, EMA and
-`mixed_precision` keys. `batches` is any iterable of dicts holding 'jpg'
-range images (B, H, W, C) or 'moments' (B, H, W, 2Z), as numpy arrays or
-tensors, the layout the JAX package's loader yields.
+configs (rangeldm_tpu/configs/rangeldm_kitti360.yaml, upsample.yaml,
+inpainting.yaml): a zoo `model:` or an inline `model_config:` /
+`vae_config:`, the optimizer, schedule, EMA and `mixed_precision` keys, and
+`upsample:` or `inpainting:` for the conditional models. `batches` is any
+iterable of dicts in the (B, H, W, C) layout, as numpy arrays or tensors:
+'jpg' range images or 'moments' (B, H, W, 2Z), with 'down' (upsample) or
+'masked_image' and 'inpainting_mask' (inpainting), the batches of
+`data.RangeLoader`.
 
 Not ported yet: checkpoint and resume, the latent cache, in-training sample
-dumps, the command-line `main` (it needs the data loader and a config
-reader), data-parallel training and conditional training.
+dumps, the command-line `main` (it needs a config reader) and data-parallel
+training.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
 from rangeldm_tpu_torch.models.zoo import ModelSpec, get_model_spec
 from rangeldm_tpu_torch.pipelines.samplers import to_bcwh
 from rangeldm_tpu_torch.sample_ldm import resolve_device
+from rangeldm_tpu_torch.training import conditions
 from rangeldm_tpu_torch.training.ldm_trainer import (
     LdmTrainConfig, make_ldm_train_step,
 )
@@ -51,6 +55,7 @@ def spec_from_cfg(cfg: Cfg) -> ModelSpec:
     `vae_config:` dict for the latent autoencoder."""
     if not cfg.get("model_config"):
         return get_model_spec(cfg.model)
+    conditional = bool(cfg.get("upsample") or cfg.get("inpainting"))
     vae = None
     if cfg.get("vae_config"):
         vae = VaeConfig(**{k: tuple(v) if isinstance(v, list) else v
@@ -58,10 +63,15 @@ def spec_from_cfg(cfg: Cfg) -> ModelSpec:
     unet = UNetConfig.from_reference(dict(cfg.model_config))
     h, w = unet.sample_size
     factor = vae.down_factor if vae is not None else 1
+    pos = bool(cfg.get("pos_encoding", True))
+    # a conditional model's input channels beyond out (+ pos) are its
+    # condition's
+    cond = (unet.in_channels - unet.out_channels - int(pos) if conditional
+            else 0)
     return ModelSpec(
         name=cfg.get("model", "custom"), unet=unet, vae=vae,
         image_size=tuple(cfg.get("image_size", (h * factor, w * factor))),
-        pos_encoding=bool(cfg.get("pos_encoding", True)))
+        pos_encoding=pos, cond_channels=cond)
 
 
 def load_vae(path: str) -> AutoencoderKL:
@@ -79,6 +89,10 @@ def load_vae(path: str) -> AutoencoderKL:
     return vae
 
 
+# the batch entries a step reads: images or moments, and the conditions
+BATCH_KEYS = ("jpg", "moments", "down", "masked_image", "inpainting_mask")
+
+
 class LdmTrainer:
     """Builds the UNet, the frozen VAE, the schedule, the optimizer and the
     EMA from `cfg`; `fit` consumes any iterable of batch dicts."""
@@ -87,9 +101,6 @@ class LdmTrainer:
         self.cfg = cfg = Cfg.wrap(dict(cfg))
         self.device = resolve_device(device)
         self.spec = spec_from_cfg(cfg)
-        if cfg.get("upsample") or cfg.get("inpainting"):
-            raise NotImplementedError("conditional training (upsample, "
-                                      "inpainting) is not ported yet")
         self.compute_dtype = (torch.bfloat16
                               if cfg.get("mixed_precision") == "bf16"
                               else torch.float32)
@@ -135,12 +146,38 @@ class LdmTrainer:
             ema_power=float(cfg.get("ema_power", 0.75)),
             ema_max_decay=float(cfg.get("ema_max_decay", 0.9999)),
             grad_accum_steps=int(cfg.get("gradient_accumulation_steps", 1)))
+        self.cond_fn = self._cond_fn()
         self.train_step = make_ldm_train_step(
-            self.schedule, self.train_cfg, self.vae,
+            self.schedule, self.train_cfg, self.vae, cond_fn=self.cond_fn,
             compute_dtype=self.compute_dtype)
 
         self.out_dir = cfg.get("output_dir") or "runs/default"
         os.makedirs(self.out_dir, exist_ok=True)
+
+    def _cond_fn(self):
+        """The condition of an upsample or inpainting config
+        (rangeldm_tpu/train_ldm.py:163-184), else None."""
+        cfg = self.cfg
+        if cfg.get("upsample"):
+            # the pixel unshuffle's azimuth factor is the VAE's down factor
+            # (the reference's SparseRangeImageEncoder2 hardcodes its VAE's
+            # 4, ldm/encoders.py:90-95); the beam densification factor must
+            # equal it, or the condition cannot match the latent grid
+            factor = (self.spec.vae.down_factor if self.spec.vae
+                      else int(cfg.upsample))
+            if int(cfg.upsample) != factor:
+                raise ValueError(
+                    f"upsample factor {cfg.upsample} != VAE down factor "
+                    f"{factor}: the unshuffled condition "
+                    f"(beams/{cfg.upsample}, azimuth/{factor}) cannot "
+                    f"match the latent grid (the reference supports "
+                    f"densification == 4 == its VAE factor only)")
+            return conditions.make_upsample_cond_fn(factor)
+        if cfg.get("inpainting"):
+            return conditions.make_inpainting_cond_fn(
+                self.vae, self.train_cfg.scaling_factor,
+                self.spec.unet.sample_size)
+        return None
 
     def _to_device(self, batch) -> dict:
         """A batch dict (or bare image array) in the loader's (B, H, W, C)
@@ -148,15 +185,16 @@ class LdmTrainer:
         if not isinstance(batch, Mapping):
             batch = {"jpg": batch}
         return {k: to_bcwh(torch.as_tensor(v).to(self.device, torch.float32))
-                for k, v in batch.items() if k in ("jpg", "moments")}
+                for k, v in batch.items() if k in BATCH_KEYS}
 
     def fit(self, batches, max_steps: Optional[int] = None,
-            log_every: int = 50) -> dict:
+            log_every: int = 50, loader=None) -> dict:
         """Train on `batches` until they run out or `max_steps` updates are
         made. Every `log_every` steps (and at the last) the loss, the
         gradient norm, the step and the steps per second since the start
-        of this call are logged to <output_dir>/train_log.jsonl; returns
-        the last logged record."""
+        of this call are logged to <output_dir>/train_log.jsonl, with the
+        `data_wait_frac` of `loader` (the RangeLoader feeding `batches`)
+        when one is given; returns the last logged record."""
         cfg = self.cfg
         generator = torch.Generator(device=self.device).manual_seed(
             int(cfg.get("seed", 0)))
@@ -176,6 +214,8 @@ class LdmTrainer:
                 last = {k: float(v) for k, v in metrics.items()}
                 last.update(step=step, sps=(
                     (step - step0) / max(time.perf_counter() - t0, 1e-9)))
+                if loader is not None:
+                    last["data_wait_frac"] = loader.wait_fraction
                 logger.log(step, last)
             if done:
                 break

@@ -3,17 +3,18 @@ ldm_trainer.py, the per-batch hot path of ldm/train_unconditional.py:
 466-556):
 
   frozen-VAE encode -> scale -> noise and timesteps -> add_noise ->
-  concat pos-encoding -> UNet -> (min-SNR weighted) MSE -> backward ->
-  clipped AdamW update -> EMA.
+  concat condition and pos-encoding -> UNet -> (min-SNR weighted) MSE ->
+  backward -> clipped AdamW update -> EMA.
 
 Tensors are in the torch layout (B, C, W=azimuth, H=beams). Under a bf16
 compute dtype the parameters stay f32: the VAE encode and the UNet forward
 run under `torch.autocast`, the loss in f32. On CUDA every attention layer
 of the UNet goes through the fused kernels, forward and backward.
 
-Randomness comes from the caller's `torch.Generator`; `noise`, `timesteps`
-and `posterior_noise` may be given instead, so that a test can feed the
-same draws to this step and to the JAX package's.
+Randomness comes from the caller's `torch.Generator`; `noise`,
+`timesteps`, `posterior_noise` and `cond_posterior_noise` may be given
+instead, so that a test can feed the same draws to this step and to the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -63,19 +64,22 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
                         cond_fn: Optional[Callable] = None,
                         compute_dtype: torch.dtype = torch.float32):
     """Returns `train_step(state, batch, generator=None, *, noise=None,
-    timesteps=None, posterior_noise=None) -> metrics`, which updates
-    `state` (its model, optimizer, EMA and step) in place and returns the
-    loss and the gradient norm before the clip as tensors.
+    timesteps=None, posterior_noise=None, cond_posterior_noise=None) ->
+    metrics`, which updates `state` (its model, optimizer, EMA and step) in
+    place and returns the loss and the gradient norm before the clip as
+    tensors.
 
     batch: (B, C, W, H) range images (already normalized), or a dict with
     'jpg' images or 'moments', the frozen VAE's posterior moments
-    (B, 2Z, W, H). `vae` is an AutoencoderKL whose encoder stays frozen;
-    without one the images are the diffusion space (pixel diffusion).
+    (B, 2Z, W, H), and the condition inputs. `vae` is an AutoencoderKL
+    whose encoder stays frozen; without one the images are the diffusion
+    space (pixel diffusion). `cond_fn(batch, generator, posterior_noise)`
+    (training/conditions.py) builds the condition channels once per step,
+    outside the graph; they are concatenated after the noisy latents and
+    before the pos channel (ldm/train_conditional.py:418-447).
     Given draws are for the whole batch: `noise` of the latents' shape,
-    `timesteps` (B,), `posterior_noise` of the posterior mean's shape."""
-    if cond_fn is not None:
-        raise NotImplementedError("conditional training (upsample, "
-                                  "inpainting) is not ported yet")
+    `timesteps` (B,), `posterior_noise` of the posterior mean's shape,
+    `cond_posterior_noise` that of the condition's posterior draw."""
     prediction_type = schedule.cfg.prediction_type
     if prediction_type not in ("epsilon", "v_prediction"):
         raise ValueError(prediction_type)
@@ -103,11 +107,24 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
         return gaussian_sample(moments.float(), generator,
                                noise=posterior_noise) * cfg.scaling_factor
 
-    def loss_fn(model, latents, noise, t) -> torch.Tensor:
+    @torch.no_grad()
+    def condition(batch, generator, posterior_noise):
+        if cond_fn is None:
+            return None
+        if not isinstance(batch, dict):
+            raise ValueError("a conditional step takes a batch dict with "
+                             "its condition inputs")
+        device = next(iter(batch.values())).device
+        with autocast(device):
+            return cond_fn(batch, generator, posterior_noise)
+
+    def loss_fn(model, latents, noise, t, cond) -> torch.Tensor:
         noisy = schedule.add_noise(latents, noise, t)
         target = (noise if prediction_type == "epsilon"
                   else schedule.get_velocity(latents, noise, t))
         inp = noisy
+        if cond is not None:
+            inp = torch.cat([inp, cond.to(inp.dtype)], dim=1)
         if cfg.pos_encoding:
             b, _, w, h = latents.shape
             inp = torch.cat([inp, make_pos_encoding(
@@ -125,8 +142,10 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
                    generator: Optional[torch.Generator] = None, *,
                    noise: Optional[torch.Tensor] = None,
                    timesteps: Optional[torch.Tensor] = None,
-                   posterior_noise: Optional[torch.Tensor] = None):
+                   posterior_noise: Optional[torch.Tensor] = None,
+                   cond_posterior_noise: Optional[torch.Tensor] = None):
         latents = encode(batch, generator, posterior_noise)
+        cond = condition(batch, generator, cond_posterior_noise)
         b = latents.shape[0]
         if noise is None:
             noise = torch.randn(latents.shape, generator=generator,
@@ -139,7 +158,7 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
         state.optimizer.zero_grad(set_to_none=True)
         k = cfg.grad_accum_steps
         if k == 1:
-            loss = loss_fn(model, latents, noise, timesteps)
+            loss = loss_fn(model, latents, noise, timesteps, cond)
             loss.backward()
             return apply_updates_and_ema(state, loss.detach(), cfg)
         if b % k:
@@ -148,9 +167,10 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
         # micro-batch accumulation (the reference's accelerate.accumulate,
         # ldm/train_unconditional.py:503): sum the gradients, then average
         loss = torch.zeros((), device=latents.device)
-        for lat, nz, t in zip(latents.chunk(k), noise.chunk(k),
-                              timesteps.chunk(k)):
-            micro = loss_fn(model, lat, nz, t)
+        conds = cond.chunk(k) if cond is not None else [None] * k
+        for lat, nz, t, cd in zip(latents.chunk(k), noise.chunk(k),
+                                  timesteps.chunk(k), conds):
+            micro = loss_fn(model, lat, nz, t, cd)
             micro.backward()
             loss = loss + micro.detach()
         torch._foreach_div_([p.grad for p in model.parameters()

@@ -134,7 +134,7 @@ def test_attention_block_gradients_match_jax(hw):
     def loss(p, xx):
         return jnp.sum(m.apply(p, xx) * jnp.asarray(ct))
 
-    gp, gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, jnp.asarray(x))
     want = unet_state_dict_from_jax(jax.tree.map(np.asarray, gp))
 
     blk = Attention(c, use_fused=None)

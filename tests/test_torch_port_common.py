@@ -64,9 +64,9 @@ def jax_unet_params(seed: int = 0, **overrides):
     return cfg, perturb(params, seed + 1)
 
 
-def jax_vae_params(seed: int = 0):
+def jax_vae_params(seed: int = 0, **overrides):
     """(JAX VaeConfig, params tree) of the tiny VAE."""
-    cfg = JaxVaeConfig(**TINY_VAE)
+    cfg = JaxVaeConfig(**{**TINY_VAE, **overrides})
     rng = np.random.default_rng(seed)
     params = convert_sgm_vae_state_dict(make_sgm_vae_state_dict(rng, cfg))
     return cfg, perturb(params, seed + 1, scale=0.02)

@@ -207,3 +207,91 @@ def test_unet_backward_through_the_kernels():
     assert kernels.LAUNCHES[BWD_KERNEL] == 16
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+@pytest.mark.parametrize("name", ["rangeldm_upsample", "rangeldm_inpainting"])
+def test_conditional_unet_through_the_kernel(name):
+    """The full-width conditional UNets (12 and 9 input channels) in f32:
+    all 16 attention layers launch the kernel and agree with the einsum
+    path within 5e-4."""
+    from rangeldm_tpu_torch.models import zoo
+    cfg = getattr(zoo, name)().unet
+    torch.manual_seed(0)
+    fused = UNet2D(cfg).cuda().eval()
+    plain = UNet2D(dataclasses.replace(cfg, use_fused_attention=False))
+    plain.load_state_dict(fused.state_dict())
+    plain = plain.cuda().eval()
+    h, w = cfg.sample_size
+    x = torch.randn(2, cfg.in_channels, w, h, device="cuda")
+    t = torch.tensor([10, 900], device="cuda")
+    with torch.inference_mode():
+        before = kernels.LAUNCHES[KERNEL]
+        got = fused(x, t)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[KERNEL] - before == 16
+        want = plain(x, t)
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("mode", ["upsample", "inpainting"])
+def test_conditional_train_step_through_both_kernels(mode):
+    """One conditional train step of a narrow flagship-grammar UNet in f32,
+    with the condition built from the batch: 16 forward and 16 backward
+    launches, and every gradient within 1e-4 of its own largest entry (plus
+    1e-6 of the model's largest) of the same step on the einsum path."""
+    from rangeldm_tpu_torch.diffusion.schedule import Schedule
+    from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
+    from rangeldm_tpu_torch.training import conditions
+    from rangeldm_tpu_torch.training.ldm_trainer import (
+        LdmTrainConfig, make_ldm_train_step,
+    )
+    from rangeldm_tpu_torch.training.train_state import (
+        TrainState, make_adamw,
+    )
+    cfg = UNetConfig(sample_size=(16, 64), block_out_channels=(32, 32, 64,
+                                                               64),
+                     in_channels=12 if mode == "upsample" else 9)
+    torch.manual_seed(0)
+    vae = AutoencoderKL(VaeConfig(ch=32, ch_mult=(1, 2, 2),
+                                  num_res_blocks=1)).cuda().eval()
+    vae.requires_grad_(False)
+    fused = UNet2D(cfg).cuda().train()
+    plain = UNet2D(dataclasses.replace(cfg, use_fused_attention=False))
+    plain.load_state_dict(fused.state_dict())
+    plain = plain.cuda().train()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    images = torch.randn(2, 2, 256, 64, device="cuda", generator=g)
+    mask = -torch.ones(2, 1, 256, 64, device="cuda")
+    mask[:, :, :16] = 1.0
+    batch = {"jpg": images, "down": images[..., 2::4],
+             "masked_image": torch.where(mask > 0, -1.0, images),
+             "inpainting_mask": mask}
+    cond_fn = (conditions.make_upsample_cond_fn(4) if mode == "upsample"
+               else conditions.make_inpainting_cond_fn(vae, 0.18215,
+                                                       (16, 64)))
+    draws = dict(noise=torch.randn(2, 4, 64, 16, device="cuda", generator=g),
+                 timesteps=torch.tensor([10, 900], device="cuda"),
+                 posterior_noise=torch.randn(2, 4, 64, 16, device="cuda",
+                                             generator=g),
+                 cond_posterior_noise=torch.randn(2, 4, 64, 16,
+                                                  device="cuda",
+                                                  generator=g))
+    grads = []
+    for model in (fused, plain):
+        state = TrainState.create(model, make_adamw(model.parameters(),
+                                                    grad_clip=1e9),
+                                  with_ema=False)
+        step = make_ldm_train_step(Schedule(), LdmTrainConfig(
+            pos_encoding=False), vae, cond_fn=cond_fn)
+        kernels.reset_launches()
+        step(state, batch, **draws)
+        torch.cuda.synchronize()
+        launched = (kernels.LAUNCHES[KERNEL], kernels.LAUNCHES[BWD_KERNEL])
+        assert launched == ((16, 16) if model is fused else (0, 0))
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    got, want = grads
+    floor = 1e-6 * max(v.abs().max().item() for v in want.values())
+    for name, ref in want.items():
+        assert got[name] is not None and torch.isfinite(got[name]).all()
+        err = (got[name] - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item() + floor, (name, err)

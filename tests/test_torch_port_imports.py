@@ -48,7 +48,8 @@ def test_scan_sees_the_whole_package():
     assert {"attention.py", "unet.py", "vae.py", "samplers.py", "api.py",
             "sample_ldm.py", "convert.py", "chip_smoke.py", "train_ldm.py",
             "ldm_trainer.py", "train_state.py", "ema.py", "loggers.py",
-            "config.py"} <= names
+            "config.py", "datasets.py", "projection.py", "sensors.py",
+            "conditions.py", "sample_conditional.py", "mae.py"} <= names
 
 
 def _run(code_or_args):
@@ -71,7 +72,13 @@ def test_importing_every_module_loads_no_jax():
         "print(len(mods))\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 22
+    assert int(proc.stdout.split()[-1]) >= 36
+
+
+def test_conditional_sampling_cli_starts_as_a_module():
+    proc = _run(["-m", "rangeldm_tpu_torch.sample_conditional", "--help"])
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and "--mode" in proc.stdout
 
 
 def test_sampling_cli_starts_as_a_module():

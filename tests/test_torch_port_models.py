@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from rangeldm_tpu.models.unet import UNet2D as JaxUNet2D
@@ -38,13 +39,20 @@ def unet_pair():
 
 
 @pytest.fixture(scope="module")
+def jax_unet_apply(unet_pair):
+    """The JAX UNet compiled once for the module (eager op-by-op dispatch
+    compiles every op on its own)."""
+    return jax.jit(JaxUNet2D(unet_pair[0]).apply)
+
+
+@pytest.fixture(scope="module")
 def vae_pair():
     cfg, params = jax_vae_params(seed=20)
     return cfg, params, port_vae(cfg, params)
 
 
 @pytest.mark.parametrize("timesteps", [[3, 981], [500, 500]])
-def test_unet_forward_matches_jax(unet_pair, timesteps):
+def test_unet_forward_matches_jax(unet_pair, jax_unet_apply, timesteps):
     """The tiny flagship-grammar UNet on a (16, 64) latent: attention
     layers at T = 256, 64 and 16, all through `fused_attention_t` (its plain
     version on the CPU)."""
@@ -53,8 +61,8 @@ def test_unet_forward_matches_jax(unet_pair, timesteps):
     x = np.random.default_rng(sum(timesteps)).standard_normal(
         (2, h, w, cfg.in_channels)).astype(np.float32)
     t = np.asarray(timesteps, np.int32)
-    want = np.asarray(JaxUNet2D(cfg).apply({"params": params},
-                                           jnp.asarray(x), jnp.asarray(t)))
+    want = np.asarray(jax_unet_apply({"params": params}, jnp.asarray(x),
+                                     jnp.asarray(t)))
     with torch.no_grad():
         got = torch_to_nhwc(model(nhwc_to_torch(x), torch.from_numpy(t)))
     assert got.shape == (2, h, w, cfg.out_channels)

@@ -10,6 +10,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 from PIL import Image
 from safetensors.numpy import load_file as st_load_numpy
@@ -112,11 +113,13 @@ def test_released_directory_loads_strictly_and_matches_jax(release):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, h, w, 5)).astype(np.float32)
     t = np.array([900, 40], np.int32)
-    want = np.asarray(ref["unet"].apply(ref["unet_params"], jnp.asarray(x),
-                                        jnp.asarray(t)))
+    # compiled, not op by op: eager dispatch compiles every op on its own
+    want = np.asarray(jax.jit(ref["unet"].apply)(
+        ref["unet_params"], jnp.asarray(x), jnp.asarray(t)))
     z = rng.standard_normal((2, h, w, 4)).astype(np.float32)
-    want_img = np.asarray(ref["vae"].apply(ref["vae_params"], jnp.asarray(z),
-                                           method="decode"))
+    want_img = np.asarray(jax.jit(
+        lambda p, zz: ref["vae"].apply(p, zz, method="decode"))(
+            ref["vae_params"], jnp.asarray(z)))
     with torch.no_grad():
         got = torch_to_nhwc(port["unet"](nhwc_to_torch(x),
                                          torch.from_numpy(t)))
@@ -269,8 +272,9 @@ def test_written_pipeline_reads_back_in_both_packages(tmp_path):
     ref = jax_load(root, dtype=jnp.float32)
     z = np.random.default_rng(9).standard_normal((1, 16, 64, 4)).astype(
         np.float32)
-    want = np.asarray(ref["vae"].apply(ref["vae_params"], jnp.asarray(z),
-                                       method="decode"))
+    want = np.asarray(jax.jit(
+        lambda p, zz: ref["vae"].apply(p, zz, method="decode"))(
+            ref["vae_params"], jnp.asarray(z)))
     with torch.no_grad():
         got = torch_to_nhwc(port["vae"].decode(nhwc_to_torch(z)))
     np.testing.assert_allclose(got, want, **TOL)

@@ -161,8 +161,13 @@ def test_pos_encoding_layout():
 def tiny_ldm():
     ucfg, uparams = jax_unet_params(seed=30)
     vcfg, vparams = jax_vae_params(seed=40)
+    jvae = JaxAutoencoderKL(vcfg)
+    # the JAX UNet and decode traced once for both samplers' chains
     return dict(ucfg=ucfg, uparams=uparams, vcfg=vcfg, vparams=vparams,
-                unet=port_unet(ucfg, uparams), vae=port_vae(vcfg, vparams))
+                unet=port_unet(ucfg, uparams), vae=port_vae(vcfg, vparams),
+                jax_apply=jax.jit(JaxUNet2D(ucfg).apply),
+                jax_decode=jax.jit(lambda z: jvae.apply(
+                    {"params": vparams}, z, method="decode")))
 
 
 @pytest.mark.parametrize("method,steps", [("ddim", 50), ("dpmpp", 20)])
@@ -176,29 +181,30 @@ def test_latent_chain_matches_jax(tiny_ldm, method, steps):
         np.float32)
     sf = vcfg.scaling_factor
     jschedule = JaxSchedule.create(JaxScheduleConfig())
-    junet, jvae = JaxUNet2D(ucfg), JaxAutoencoderKL(vcfg)
 
     @jax.jit
     def jax_chain(x):
-        z = js.denoise(lambda u, t: junet.apply({"params": m["uparams"]}, u,
-                                                t),
-                       jschedule, x, steps, jax.random.PRNGKey(0),
-                       method=method,
-                       pos_encoding=js.make_pos_encoding(*shape[:3]))
-        return z, jvae.apply({"params": m["vparams"]}, z / sf,
-                             method="decode")
+        return js.denoise(
+            lambda u, t: m["jax_apply"]({"params": m["uparams"]}, u, t),
+            jschedule, x, steps, jax.random.PRNGKey(0), method=method,
+            pos_encoding=js.make_pos_encoding(*shape[:3]))
 
-    want_z, want_img = (np.asarray(u) for u in jax_chain(jnp.asarray(x_t)))
+    want_z = jax_chain(jnp.asarray(x_t))
+    want_img = np.asarray(m["jax_decode"](want_z / sf))
+    want_z = np.asarray(want_z)
 
     schedule = Schedule(ScheduleConfig())
+    seen = []
+
+    def decode(z):            # keeps the chain's last latents
+        seen.append(z * sf)
+        return m["vae"].decode(z)
+
     with torch.no_grad():
-        got_z = ts.denoise(m["unet"], schedule, nhwc_to_torch(x_t), steps,
-                           method=method,
-                           pos_encoding=ts.make_pos_encoding(*shape[:3]))
-        got_img = ts.latent_sample(m["unet"], m["vae"].decode, schedule,
-                                   shape, sf, num_steps=steps, method=method,
+        got_img = ts.latent_sample(m["unet"], decode, schedule, shape, sf,
+                                   num_steps=steps, method=method,
                                    noise=torch.from_numpy(x_t))
-    np.testing.assert_allclose(torch_to_nhwc(got_z), want_z, **CHAIN_TOL)
+    np.testing.assert_allclose(torch_to_nhwc(seen[0]), want_z, **CHAIN_TOL)
     assert got_img.shape == (1, 2 * h, 2 * w, 2)
     np.testing.assert_allclose(got_img.numpy(), want_img, **CHAIN_TOL)
 

@@ -40,7 +40,7 @@ from rangeldm_tpu_torch.convert import unet_state_dict_from_jax
 from rangeldm_tpu_torch.diffusion.schedule import Schedule, ScheduleConfig
 from rangeldm_tpu_torch.ops import kernels
 from rangeldm_tpu_torch.pipelines import RangePipeline
-from rangeldm_tpu_torch.training import ema
+from rangeldm_tpu_torch.training import conditions, ema
 from rangeldm_tpu_torch.training.ldm_trainer import (
     LdmTrainConfig, apply_updates_and_ema, make_ldm_train_step,
 )
@@ -86,8 +86,7 @@ def _jax_draws(rng, b, latent_hw, z, k):
         rn, rt = jax.random.split(kk)
         noise.append(jax.random.normal(rn, (b // k, h, w, z), jnp.float32))
         ts.append(jax.random.randint(rt, (b // k,), 0, 1000))
-    return (np.asarray(post), np.concatenate([np.asarray(u) for u in noise]),
-            np.concatenate([np.asarray(u) for u in ts]))
+    return post, jnp.concatenate(noise), jnp.concatenate(ts)
 
 
 CASES = {
@@ -122,14 +121,19 @@ def test_train_step_matches_jax(case):
         vae_apply=lambda p, x: jvae.apply(p, x, method="encode_moments"),
         vae_params={"params": vparams})
     key = jax.random.PRNGKey(seed)
-    jstate = JaxTrainState.create(jax.tree.map(jnp.asarray, uparams),
-                                  _store_grads(), with_ema=False)
     jbatch = {"moments": jnp.asarray(moments)} if use_moments \
         else jnp.asarray(images)
-    jstate, jmetrics = jax.jit(step_fn)(jstate, jbatch, key)
-    want_grads = unet_state_dict_from_jax(
-        jax.tree.map(np.asarray, jstate.opt_state))
-    post, noise, ts = _jax_draws(key, BATCH, lat_hw, 4, k)
+
+    @jax.jit
+    def jax_step(params, batch):
+        """One compile for the state, the step and the draws."""
+        state = JaxTrainState.create(params, _store_grads(), with_ema=False)
+        state, metrics = step_fn(state, batch, key)
+        return state.opt_state, metrics, _jax_draws(key, BATCH, lat_hw, 4, k)
+
+    grads, jmetrics, (post, noise, ts) = jax.tree.map(
+        np.asarray, jax_step(uparams, jbatch))
+    want_grads = unet_state_dict_from_jax(grads)
 
     # the port, on the same weights and draws
     sched = Schedule(ScheduleConfig(prediction_type=pred))
@@ -160,9 +164,16 @@ def test_train_step_matches_jax(case):
 
 
 def test_train_step_raises_on_conditional_training():
-    with pytest.raises(NotImplementedError):
-        make_ldm_train_step(Schedule(), LdmTrainConfig(),
-                            cond_fn=lambda batch, g: None)
+    """Conditional training is ported (tests/test_torch_port_conditional.py);
+    a conditional step raises on a batch that lacks its condition: a bare
+    image batch, or a dict without the condition's input."""
+    step = make_ldm_train_step(Schedule(), LdmTrainConfig(pos_encoding=False),
+                               cond_fn=conditions.make_upsample_cond_fn(4))
+    images = torch.zeros((2, 2, 64, 16))
+    with pytest.raises(ValueError, match="batch dict"):
+        step(None, images)
+    with pytest.raises(KeyError, match="down"):
+        step(None, {"jpg": images})
 
 
 PARAM_SHAPES = [(8, 4), (16,), (3, 3, 2, 2)]
