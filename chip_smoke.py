@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
                  ptxas must report no spill stores for the bf16 kernels
   3. kernels   - each kernel against its plain PyTorch version at the
                  flagship shapes (batch 4, the conditional CLI's batch 8
-                 and the training batch 32), f32
+                 and the training batch 32) and RangeDM's (training and
+                 dump batch 8), f32
                  and bf16, two calls bit-identical, with times, the bound,
                  the floor of the exponentials alone and one PyTorch
                  library call as a yardstick
@@ -35,6 +36,14 @@ Phases, each printing one JSON line:
   8. cond_train - LdmTrainer on the shipped upsample config (batch 32, bf16)
                  for 5 steps, one epoch of the port's RangeLoader over the
                  train drive, then save_final, reload and a 2-step upsample
+  9. train_cli - the training command line (`train_ldm.main`) on the shipped
+                 pixel-space RangeDM config (rangedm_kitti360.yaml, full
+                 width, batch 8, bf16) plus an override file, over the
+                 synthetic root: 4 steps with rolling checkpoints and a
+                 sample dump, a checkpoint round trip, a resumed run to
+                 step 6, the final pipeline reloaded through its run record
+                 and sampled with DDIM-50; then the flagship config with
+                 cache_latents for 3 steps, and the moments cache reused
 Then the kernel summary line, the card line, and the result line. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -75,7 +84,17 @@ COND_TRAIN_STEPS = 5            # one epoch of the train drive
 # such layers in one forward; N = batch * heads. One ragged case (N, 8, 200)
 # lies off the main path.
 FLAGSHIP_LAYERS = [(16, 1024, 5), (32, 256, 5), (32, 64, 6)]
+# the same for pixel-space RangeDM (64x1024 image): 2 + 3 layers at 4x64
+# and the mid block's at 2x32, 64 heads each
+RANGEDM_LAYERS = [(64, 256, 5), (64, 64, 1)]
+RANGEDM_BATCH = 8              # rangedm_kitti360.yaml's, and the dump's
 RAGGED_SHAPE = (5, 8, 200)
+# the shipped configs the training command line reads, as data files
+RANGEDM_YAML = os.path.join("rangeldm_tpu", "configs", "rangedm_kitti360.yaml")
+FLAGSHIP_YAML = os.path.join("rangeldm_tpu", "configs",
+                             "rangeldm_kitti360.yaml")
+CLI_STEPS = (4, 6)             # run A's last step, and the resumed run B's
+CACHE_STEPS = 3
 # rangeldm_tpu/configs/rangeldm_kitti360.yaml, the shipped flagship training
 # config, with the warm-up cut to 2 steps so that 10 steps move the weights;
 # output_dir is a temporary directory set at run time
@@ -263,9 +282,9 @@ def phase_build(kernels):
                 f"ptxas: {kernel} not built or spills registers: {found}")
 
 
-def _shapes(batch):
+def _shapes(batch, model_layers=FLAGSHIP_LAYERS):
     return [((batch * heads, 8, t), layers)
-            for heads, t, layers in FLAGSHIP_LAYERS]
+            for heads, t, layers in model_layers]
 
 
 def _close(kernel, got, want, dtype) -> tuple:
@@ -292,14 +311,17 @@ def phase_kernels(attention, clock_hz: float):
     kernel, the plain version and one PyTorch call (SDPA forward, or the
     autograd backward of SDPA) on the same inputs."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [(kernel, batch, shape, layers)
+    cases = [(kernel, "rangeldm_kitti360", batch, shape, layers)
              for kernel in ("attention_fwd", "attention_bwd")
              for batch in (BATCH, CLI_BATCH, TRAIN_BATCH)
              for shape, layers in _shapes(batch)]
-    cases += [(kernel, 0, RAGGED_SHAPE, 0)
+    cases += [(kernel, "rangedm_kitti360", RANGEDM_BATCH, shape, layers)
+              for kernel in ("attention_fwd", "attention_bwd")
+              for shape, layers in _shapes(RANGEDM_BATCH, RANGEDM_LAYERS)]
+    cases += [(kernel, None, 0, RAGGED_SHAPE, 0)
               for kernel in ("attention_fwd", "attention_bwd")]
     rows = []
-    for kernel, batch, shape, layers in cases:
+    for kernel, model, batch, shape, layers in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, g = (torch.randn(shape, generator=gen, device="cuda",
                                       dtype=dtype) for _ in range(4))
@@ -342,7 +364,8 @@ def phase_kernels(attention, clock_hz: float):
             library_ms = cuda_ms(library, 20)
             flops, nbytes = attention_work(kernel, shape, dtype)
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            row = dict(kernel=kernel, batch=batch, shape=list(shape),
+            row = dict(kernel=kernel, model=model, batch=batch,
+                       shape=list(shape),
                        dtype=str(dtype).split(".")[1],
                        layers_per_unet_forward=layers, max_abs_err=err,
                        deterministic=same, ms=ms, plain_ms=plain_ms,
@@ -578,8 +601,8 @@ def phase_train(kernels, smi):
                 bool(np.isfinite(images).all()),
                 f"sample from the trained pipeline: {images.shape}")
         saved = sorted(os.listdir(path))
-    require(saved == ["scheduler", "unet", "unet_ema", "vae"],
-            f"save_final wrote {saved}")
+    require(saved == ["model_index.json", "scheduler", "unet", "unet_ema",
+                      "vae"], f"save_final wrote {saved}")
     emit("train", dtype="bfloat16", batch=TRAIN_BATCH, steps=TRAIN_STEPS,
          card=smi, losses=[r["loss"] for r in log],
          grad_norms=[r["grad_norm"] for r in log],
@@ -804,6 +827,281 @@ def phase_cond_train(kernels, data_root: str, smi) -> dict:
     return launches
 
 
+def write_yaml(path: str, cfg: dict) -> str:
+    """A config override in the block-YAML subset the port reads: nested
+    mappings, strings double-quoted."""
+    def lines(d, indent):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield f"{indent}{k}:"
+                yield from lines(v, indent + "  ")
+            else:
+                text = ("true" if v is True else "false" if v is False
+                        else json.dumps(v))
+                yield f"{indent}{k}: {text}"
+    with open(path, "w") as f:
+        f.write("\n".join(lines(cfg, "")) + "\n")
+    return path
+
+
+def png_size(path: str) -> tuple:
+    """(width, height) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    require(head[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    return (int.from_bytes(head[16:20], "big"),
+            int.from_bytes(head[20:24], "big"))
+
+
+def read_log(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def state_equal(a: dict, b: dict) -> list:
+    """The keys on which two TrainState.state_dict()s differ."""
+    if a.keys() != b.keys():
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if not (
+        torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k])]
+
+
+def unet_work(name: str) -> dict:
+    """A zoo UNet's parameter count and the operations of one forward pass
+    of one image (each multiply-add counted as two), counted by
+    torch.utils.flop_counter on the meta device, where nothing runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from rangeldm_tpu_torch.models import UNet2D, zoo
+    cfg = dataclasses.replace(zoo.get_model_spec(name).unet,
+                              use_fused_attention=False)
+    with torch.device("meta"):
+        unet = UNet2D(cfg)
+        h, w = cfg.sample_size
+        x = torch.zeros((1, cfg.in_channels, w, h))
+        with FlopCounterMode(display=False) as counter:
+            unet(x, torch.zeros((1,), dtype=torch.long))
+    return {"unet_params": sum(p.numel() for p in unet.parameters()),
+            "unet_fwd_tflop_per_image": counter.get_total_flops() / 1e12}
+
+
+def phase_train_cli(kernels, data_root: str, smi) -> dict:
+    """`train_ldm.main` on the shipped RangeDM config with an override file:
+    run A (steps 1-4, checkpoints every 2 keeping 1, a dump at step 4), a
+    checkpoint round trip into a fresh trainer, run B resumed from the
+    latest checkpoint to step 6, the final pipeline loaded through its run
+    record and sampled; then the flagship config with cache_latents for 3
+    steps and the moments cache called again. Returns each kernel's
+    launches over those runs."""
+    from rangeldm_tpu_torch import train_ldm
+    from rangeldm_tpu_torch.pipelines import RangePipeline
+    from rangeldm_tpu_torch.training import checkpoint, latent_cache
+    from rangeldm_tpu_torch.utils.config import expand_env, load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    fields = unet_work("rangedm_kitti360")
+    total = {"attention_fwd": 0, "attention_bwd": 0}
+
+    def count(expect_fwd, expect_bwd, what):
+        torch.cuda.synchronize()
+        got = (kernels.LAUNCHES.get("attention_fwd", 0),
+               kernels.LAUNCHES.get("attention_bwd", 0))
+        require(got == (expect_fwd, expect_bwd),
+                f"{what}: (forward, backward) launches {got}, expected "
+                f"{(expect_fwd, expect_bwd)}")
+        total["attention_fwd"] += got[0]
+        total["attention_bwd"] += got[1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rangedm")
+        base = {"output_dir": out, "data": {"root": data_root},
+                "checkpointing_steps": 2, "checkpoints_total_limit": 1,
+                "sample_every_steps": 4, "log_every": 1}
+        shipped = os.path.join(here, RANGEDM_YAML)
+
+        # run A: steps 1-4
+        override = write_yaml(os.path.join(tmp, "a.yaml"), base)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_ldm.main(["--cfg", shipped, override, "--max_steps",
+                                  str(CLI_STEPS[0])])
+        torch.cuda.synchronize()
+        fields["run_a_seconds"] = time.perf_counter() - t0
+        fields["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = CLI_STEPS[0]
+        count(6 * steps + 6 * 50, 6 * steps, "run A")
+        require(trainer.device.type == "cuda" and trainer.vae is None
+                and trainer.spec.name == "rangedm_kitti360"
+                and trainer.compute_dtype == torch.bfloat16
+                and trainer.cfg.train_batch_size == RANGEDM_BATCH,
+                f"run A trained {trainer.spec.name} at batch "
+                f"{trainer.cfg.train_batch_size} in {trainer.compute_dtype}")
+        log_a = read_log(out)
+        require([r["step"] for r in log_a] == list(range(1, steps + 1)),
+                f"run A logged steps {[r['step'] for r in log_a]}")
+        require(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                    for r in log_a), f"non-finite loss or grad_norm: {log_a}")
+        ckpt_dir = os.path.join(out, "checkpoints")
+        require(sorted(os.listdir(ckpt_dir)) == [f"checkpoint_{steps}"],
+                f"checkpoints after rotation: {os.listdir(ckpt_dir)}")
+        grid = os.path.join(out, "samples", f"samples_step{steps:08d}.png")
+        require(png_size(grid) == (1024, 2 * RANGEDM_BATCH * 64),
+                f"sample grid {png_size(grid)}")
+
+        # round trip: a fresh trainer resumes from checkpoint_4
+        want = trainer.state.state_dict()
+        t0 = time.perf_counter()
+        timed = checkpoint.TrainCheckpointer(os.path.join(tmp, "timed"))
+        saved = timed.save(steps, trainer.state)
+        fields["checkpoint_save_s"] = time.perf_counter() - t0
+        fields["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(saved, f)) for f in os.listdir(saved))
+        del trainer
+        fresh = train_ldm.LdmTrainer(dict(
+            expand_env(load_config(shipped, override)),
+            resume_from_checkpoint=os.path.join(ckpt_dir,
+                                                f"checkpoint_{steps}")))
+        t0 = time.perf_counter()
+        restored = fresh.resume()
+        torch.cuda.synchronize()
+        fields["resume_s"] = time.perf_counter() - t0
+        got = fresh.state.state_dict()
+        require(restored == steps, f"resumed at step {restored}")
+        differ = state_equal(want, got)
+        require(not differ, f"the round trip changed {differ[:5]}")
+        fields["round_trip"] = dict(
+            tensors=sum(torch.is_tensor(v) for v in got.values()),
+            scalars={k: v for k, v in got.items()
+                     if not torch.is_tensor(v) and k != "generator"},
+            generator_state_bytes=len(got["generator"]) // 2)
+        del fresh, want, got
+
+        # run B: resumed from the latest checkpoint, to step 6
+        override = write_yaml(os.path.join(tmp, "b.yaml"), dict(
+            base, resume_from_checkpoint="latest"))
+        kernels.reset_launches()
+        trainer = train_ldm.main(["--cfg", shipped, override, "--max_steps",
+                                  str(CLI_STEPS[1])])
+        count(6 * (CLI_STEPS[1] - steps), 6 * (CLI_STEPS[1] - steps),
+              "run B")
+        log_b = read_log(out)[len(log_a):]
+        require([r["step"] for r in log_b]
+                == list(range(steps + 1, CLI_STEPS[1] + 1)),
+                f"run B logged steps {[r['step'] for r in log_b]}")
+        require(all(np.isfinite(r["loss"]) for r in log_b),
+                f"non-finite loss: {log_b}")
+        pipe_dir = os.path.join(out, "pipeline")
+        with open(os.path.join(pipe_dir, "model_index.json")) as f:
+            record = json.load(f)
+        require(record["model"] == "rangedm_kitti360"
+                and record["sensor"] == "kitti360"
+                and record["image_size"] == [64, 1024]
+                and record["pos_encoding"] is True
+                and record["normalization"] == {"mean": 20.0, "std": 40.0,
+                                                "log": False,
+                                                "inverse": False},
+                f"run record {record}")
+        # the steady rate: step intervals with no checkpoint or dump in
+        # them (1-2 and 3-4 of run A, 5-6 of run B), from the log's
+        # steps-per-second counted from the start of each fit
+        ends = {r["step"]: (r["step"] - s0) / r["sps"]
+                for recs, s0 in ((log_a, 0), (log_b, steps)) for r in recs}
+        clean = [(1, 2), (3, 4), (5, 6)]
+        seconds = sum(ends[b] - ends[a] for a, b in clean)
+        fields.update(steps_per_s=len(clean) / seconds,
+                      samples_per_s=len(clean) * RANGEDM_BATCH / seconds,
+                      first_step_s=ends[1],
+                      losses=[r["loss"] for r in log_a + log_b])
+        del trainer
+
+        # the trained pipeline: pixel space, sensor and normalization from
+        # its record, DDIM-50 at batch 4
+        pipe = RangePipeline.from_pretrained(pipe_dir)
+        require(not pipe.is_latent and pipe.sensor == "kitti360"
+                and (pipe.spec.mean, pipe.spec.std) == (20.0, 40.0),
+                f"pipeline: latent {pipe.is_latent}, sensor {pipe.sensor}")
+        pipe(batch_size=BATCH, num_inference_steps=2)        # warm-up
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        images = pipe(batch_size=BATCH, num_inference_steps=50, seed=SEED)
+        sample_s = time.perf_counter() - t0
+        count(6 * 50, 0, "pixel DDIM-50")
+        require(images.shape == (BATCH, 64, 1024, 2)
+                and bool(np.isfinite(images).all()),
+                f"pixel samples {images.shape}")
+        clouds = pipe.to_point_clouds(images)
+        require(len(clouds) == BATCH and all(
+            c.ndim == 2 and c.shape[1] == 4 and np.isfinite(c).all()
+            for c in clouds), "bad point clouds")
+        unet = pipe._p["unet"]
+        gen = torch.Generator(device=pipe.device).manual_seed(SEED)
+        x = torch.randn((BATCH, 3, 1024, 64), generator=gen,
+                        device=pipe.device, dtype=torch.bfloat16)
+        t = torch.tensor(500, device=pipe.device)
+        kernels.reset_launches()
+        with torch.inference_mode():
+            fields["unet_fwd_ms"] = cuda_ms(lambda: unet(x, t), 10)
+        kernels.reset_launches()      # timing launches are not the path's
+        fields.update(ddim50_seconds=sample_s,
+                      ddim50_samples_per_s=BATCH / sample_s,
+                      cloud_points=[int(c.shape[0]) for c in clouds])
+        del pipe, unet
+
+        # the flagship config from cached moments
+        out_l = os.path.join(tmp, "latent")
+        override = write_yaml(os.path.join(tmp, "latent.yaml"), {
+            "output_dir": out_l, "data": {"root": data_root},
+            "cache_latents": True, "log_every": 1})
+        kernels.reset_launches()
+        trainer = train_ldm.main(["--cfg", os.path.join(here, FLAGSHIP_YAML),
+                                  override, "--max_steps", str(CACHE_STEPS)])
+        count(16 * CACHE_STEPS, 16 * CACHE_STEPS, "cache_latents run")
+        log_l = read_log(out_l)
+        require([r["step"] for r in log_l] == list(range(1, CACHE_STEPS + 1))
+                and all(np.isfinite(r["loss"]) for r in log_l),
+                f"cache_latents run logged {log_l}")
+        npy = os.path.join(out_l, "latent_moments.npy")
+        with open(npy + ".json") as f:
+            meta = json.load(f)
+        require(meta["n"] == TRAIN_SCANS and meta["shape"] == [
+            TRAIN_SCANS, 16, 256, 8] and meta["tag"].endswith(":bfloat16"),
+            f"moments cache {meta}")
+        mtime = os.stat(npy).st_mtime_ns
+        ds = train_ldm.build_dataset(trainer.cfg)
+        msgs = []
+        kw = dict(batch_size=TRAIN_BATCH, out_path=npy, log=msgs.append,
+                  dtype=trainer.compute_dtype)
+        t0 = time.perf_counter()
+        cached = latent_cache.precompute_moments(trainer.vae, ds,
+                                                 tag=meta["tag"], **kw)
+        reuse_s = time.perf_counter() - t0
+        require(msgs[:1] == [f"[latent-cache] reusing {npy}"]
+                and os.stat(npy).st_mtime_ns == mtime,
+                f"the second call did not reuse the cache: {msgs}")
+        cached = np.array(cached)
+        # a changed tag encodes again: the encode pass's rate
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = latent_cache.precompute_moments(trainer.vae, ds,
+                                                tag=meta["tag"] + ":x", **kw)
+        encode_s = time.perf_counter() - t0
+        require(os.stat(npy).st_mtime_ns != mtime, "a changed tag reused")
+        diff = float(np.abs(np.asarray(again) - cached).max())
+        require(bool(np.isfinite(cached).all()) and diff <= 3e-2 * float(
+            np.abs(cached).max()), f"two encodes differ by {diff}")
+        fields.update(cache_reuse_s=reuse_s,
+                      cache_encode_images_per_s=TRAIN_SCANS / encode_s,
+                      cache_reencode_max_abs_diff=diff,
+                      cache_losses=[r["loss"] for r in log_l])
+        del trainer
+    emit("train_cli", config=RANGEDM_YAML, dtype="bfloat16",
+         batch=RANGEDM_BATCH, card=smi, launches=total,
+         seconds=time.perf_counter() - t_phase, **fields)
+    return total
+
+
 def summary(rows, launches):
     """One entry per kernel, over the attention layers of one flagship UNet
     in bf16 at the batch of the path that carries it most: the forward at
@@ -816,6 +1114,7 @@ def summary(rows, launches):
             ("attention_bwd", TRAIN_BATCH,
              "rangeldm_tpu/ops/attention.py:115")):
         main = [r for r in rows if r["kernel"] == kernel
+                and r["model"] == "rangeldm_kitti360"
                 and r["batch"] == batch and r["dtype"] == "bfloat16"]
 
         def total(key):
@@ -855,10 +1154,13 @@ def main() -> int:
         launches["attention_fwd"] += phase_conditional(kernels, models,
                                                        data_root, smi)
         cond_trained = phase_cond_train(kernels, data_root, smi)
+        cli = phase_train_cli(kernels, data_root, smi)
     launches["attention_fwd"] += (trained["attention_fwd"]
-                                  + cond_trained["attention_fwd"])
+                                  + cond_trained["attention_fwd"]
+                                  + cli["attention_fwd"])
     launches["attention_bwd"] = (trained["attention_bwd"]
-                                 + cond_trained["attention_bwd"])
+                                 + cond_trained["attention_bwd"]
+                                 + cli["attention_bwd"])
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps(summary(rows, launches)))
     print(smi)

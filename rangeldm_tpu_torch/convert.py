@@ -32,6 +32,11 @@ from rangeldm_tpu_torch.models.unet import UNetConfig
 from rangeldm_tpu_torch.models.vae import VaeConfig
 
 StateDict = Dict[str, torch.Tensor]
+# the run record a trainer writes into model_index.json
+# (rangeldm_tpu/train_ldm.py:496-527); the loader reads these keys only,
+# since a diffusers model_index.json holds other ones
+RECORD_KEYS = ("model", "pos_encoding", "image_size", "sensor",
+               "normalization")
 
 _ST_DTYPES = {"F64": torch.float64, "F32": torch.float32,
               "F16": torch.float16, "BF16": torch.bfloat16,
@@ -280,11 +285,14 @@ def load_diffusers_vae(vae_dir: str) -> Tuple[VaeConfig, StateDict]:
 def save_diffusers_pipeline(path: str, unet: torch.nn.Module,
                             vae: Optional[torch.nn.Module] = None,
                             schedule: Optional[dict] = None,
-                            unet_ema: Optional[StateDict] = None) -> None:
+                            unet_ema: Optional[StateDict] = None,
+                            record: Optional[dict] = None) -> None:
     """Write a diffusers-layout pipeline directory: unet/, and (when given)
     unet_ema/ with the EMA weights of the same UNet and vae/, each with
     config.json + diffusion_pytorch_model.safetensors, and
-    scheduler/scheduler_config.json."""
+    scheduler/scheduler_config.json. `record`, a trainer's run record
+    (RECORD_KEYS), goes into model_index.json beside the schedule, as the
+    JAX package's save_pipeline writes it."""
     u = unet.cfg
     unet_config = {"sample_size": list(u.sample_size)[::-1],
                    "in_channels": u.in_channels,
@@ -318,3 +326,6 @@ def save_diffusers_pipeline(path: str, unet: torch.nn.Module,
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, "scheduler_config.json"), "w") as f:
         json.dump(dict(schedule or {}, _class_name="DDPMScheduler"), f)
+    if record is not None:
+        with open(os.path.join(path, "model_index.json"), "w") as f:
+            json.dump({"schedule": schedule, **record}, f, indent=2)

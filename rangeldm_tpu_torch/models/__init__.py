@@ -3,6 +3,6 @@ from rangeldm_tpu_torch.models.vae import (  # noqa: F401
     AutoencoderKL, Decoder, Encoder, VaeConfig,
 )
 from rangeldm_tpu_torch.models.zoo import (  # noqa: F401
-    ModelSpec, rangeldm_inpainting, rangeldm_kitti360, rangeldm_nuscenes,
-    rangeldm_upsample,
+    ModelSpec, rangedm_kitti360, rangeldm_inpainting, rangeldm_kitti360,
+    rangeldm_nuscenes, rangeldm_upsample,
 )

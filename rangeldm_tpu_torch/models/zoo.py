@@ -50,6 +50,24 @@ def rangeldm_kitti360() -> ModelSpec:
     )
 
 
+def rangedm_kitti360() -> ModelSpec:
+    """ldm/configs/RangeDM.yaml: pixel-space DDPM on the whole 64x1024x2
+    range image, attention at the fifth level (4x64) and in the mid block
+    (2x32)."""
+    return ModelSpec(
+        name="rangedm_kitti360",
+        unet=UNetConfig(
+            sample_size=(64, 1024), in_channels=3, out_channels=2,
+            block_out_channels=(128, 128, 256, 256, 512, 512),
+            down_block_types=("DownBlock2D",) * 4 + ("AttnDownBlock2D",
+                                                     "DownBlock2D"),
+            up_block_types=("UpBlock2D", "AttnUpBlock2D") + ("UpBlock2D",) * 4,
+        ),
+        vae=None,
+        image_size=(64, 1024),
+    )
+
+
 def rangeldm_nuscenes() -> ModelSpec:
     """ldm/configs/nuscenes.yaml: 32x1024 nuScenes latent diffusion on an
     8x256x4 latent."""
@@ -92,10 +110,9 @@ def rangeldm_inpainting() -> ModelSpec:
     )
 
 
-# every configuration but pixel-space RangeDM (rangedm_kitti360), which
-# comes with the pixel-diffusion slice
 ZOO = {
     "rangeldm_kitti360": rangeldm_kitti360,
+    "rangedm_kitti360": rangedm_kitti360,
     "rangeldm_nuscenes": rangeldm_nuscenes,
     "rangeldm_upsample": rangeldm_upsample,
     "rangeldm_inpainting": rangeldm_inpainting,

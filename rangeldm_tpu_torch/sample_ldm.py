@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from rangeldm_tpu_torch.convert import (
-    WEIGHT_FILES, load_diffusers_unet, load_diffusers_vae,
+    RECORD_KEYS, WEIGHT_FILES, load_diffusers_unet, load_diffusers_vae,
 )
 from rangeldm_tpu_torch.diffusion.schedule import Schedule, ScheduleConfig
 from rangeldm_tpu_torch.geometry.inverse import to_point_cloud_masked
@@ -65,7 +65,10 @@ def load_diffusers_pipeline(path: str, dtype: torch.dtype = torch.bfloat16,
                             pos_encoding: Optional[bool] = None) -> dict:
     """Load a released RangeLDM pipeline directory (diffusers layout:
     {unet, unet_ema, vae, scheduler}/) onto `device` in `dtype`. Each state
-    dict loads with strict=True."""
+    dict loads with strict=True. A pipeline written by `LdmTrainer` also
+    holds its run record in model_index.json (RECORD_KEYS: the sensor, the
+    range normalization, the pos channel, ...), which goes into `meta`;
+    an explicit `pos_encoding` wins over the record."""
     if not is_diffusers_pipeline(path):
         raise ValueError(f"{path} is not a diffusers-layout pipeline "
                          f"directory (unet/{WEIGHT_FILES[0]})")
@@ -94,12 +97,20 @@ def load_diffusers_pipeline(path: str, dtype: torch.dtype = torch.bfloat16,
     schedule = Schedule(ScheduleConfig(**{
         k: v for k, v in sched_cfg.items()
         if k in ScheduleConfig.__dataclass_fields__}))
+    record = {}
+    index_path = os.path.join(path, "model_index.json")
+    if os.path.exists(index_path):
+        with open(index_path) as f:
+            record = {k: v for k, v in json.load(f).items()
+                      if k in RECORD_KEYS}
     if pos_encoding is None:
-        # the layout records nothing about extra input channels; in every
-        # released config an in-out gap of exactly 1 is the pos channel
-        pos_encoding = (unet_cfg.in_channels - unet_cfg.out_channels) == 1
-    meta = {"pos_encoding": bool(pos_encoding), "source": "diffusers",
-            "schedule": sched_cfg}
+        # released pipelines record nothing about extra input channels; in
+        # every released config an in-out gap of exactly 1 is the pos
+        # channel
+        pos_encoding = record.get("pos_encoding", (
+            unet_cfg.in_channels - unet_cfg.out_channels) == 1)
+    meta = {**record, "pos_encoding": bool(pos_encoding),
+            "source": "diffusers", "schedule": sched_cfg}
     return dict(meta=meta, unet=unet, unet_cfg=unet_cfg, vae=vae,
                 vae_cfg=vae_cfg, schedule=schedule, device=device,
                 dtype=dtype)

@@ -1,23 +1,43 @@
-"""Scalar logging, the `accelerator.log` equivalent
+"""Scalar logging and emergency checkpointing.
+
+`ScalarLogger` is the `accelerator.log` equivalent
 (ldm/train_unconditional.py:587-591): every scalar dict goes to a jsonl
 stream and, when asked, to a Lightning-CSVLogger-style metrics.csv (header =
-union of keys, rewritten when new keys appear). The JAX package's
-TensorBoard and wandb sinks are not ported.
+union of keys, rewritten when new keys appear). It takes the JAX package's
+`tensorboard` and `wandb` switches, but those sinks are not ported: asking
+for one logs one warning and the run goes on with the other sinks.
+
+`emergency_checkpoint` is the reference's "melk" machinery
+(vae/main.py:254-261, 876-895; rangeldm_tpu/training/loggers.py:129-180):
+SIGUSR1, the usual preemption signal of a cluster, and an exception that
+escapes the training loop both save a checkpoint before the process ends.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv as csv_mod
 import json
+import logging
 import os
-from typing import Dict
+import signal
+import threading
+from typing import Callable, Dict, Iterator, Optional
+
+log = logging.getLogger(__name__)
 
 
 class ScalarLogger:
     """Appends to <out_dir>/train_log.jsonl and, with csv=True,
     <out_dir>/metrics.csv; each write is closed before `log` returns."""
 
-    def __init__(self, out_dir: str, csv: bool = False):
+    def __init__(self, out_dir: str, csv: bool = False,
+                 tensorboard: bool = False, wandb: bool = False):
+        for sink, wanted in (("tensorboard", tensorboard), ("wandb", wandb)):
+            if wanted:
+                log.warning("the %s sink is not available in this package; "
+                            "logging to train_log.jsonl%s only", sink,
+                            " and metrics.csv" if csv else "")
         os.makedirs(out_dir, exist_ok=True)
         self.jsonl_path = os.path.join(out_dir, "train_log.jsonl")
         self.csv_path = os.path.join(out_dir, "metrics.csv") if csv else None
@@ -51,3 +71,44 @@ class ScalarLogger:
             f.write(json.dumps(rec) + "\n")
         if self.csv_path is not None:
             self._write_csv(rec)
+
+
+@contextlib.contextmanager
+def emergency_checkpoint(save_fn: Callable[[], None],
+                         signum: Optional[int] = signal.SIGUSR1
+                         ) -> Iterator[Callable[[], bool]]:
+    """Deferred "melk": the signal only sets a flag, and the yielded
+    `poll()` runs `save_fn` at the caller's next step boundary, where the
+    train state is consistent (a save inside the handler could run in the
+    middle of an optimizer update). Callers poll after every step and after
+    long work between steps, such as a sample dump.
+
+    An exception that escapes the block saves once before it propagates.
+    The handler is installed only on the main thread (Python allows no
+    other); elsewhere only the save on an exception remains."""
+    requested = threading.Event()
+
+    def poll() -> bool:
+        """Save if a signal arrived since the last poll."""
+        if requested.is_set():
+            requested.clear()
+            save_fn()
+            return True
+        return False
+
+    old = None
+    installed = (signum is not None and
+                 threading.current_thread() is threading.main_thread())
+    if installed:
+        old = signal.signal(signum, lambda _sig, _frame: requested.set())
+    try:
+        yield poll
+    except BaseException:
+        try:
+            save_fn()
+        except Exception:  # noqa: BLE001 - the original error propagates
+            log.exception("emergency checkpoint failed")
+        raise
+    finally:
+        if installed:
+            signal.signal(signum, old)

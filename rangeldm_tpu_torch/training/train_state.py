@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -103,14 +103,20 @@ def clip_by_global_norm_(tensors: List[torch.Tensor], max_norm: float,
 @dataclasses.dataclass
 class TrainState:
     """The step count (updates made so far), the model, its optimizer and
-    learning-rate schedule, and the EMA shadow of its parameters (f32
-    tensors in `model.parameters()` order, or None)."""
+    learning-rate schedule, the EMA shadow of its parameters (f32 tensors
+    in `model.parameters()` order, or None) and the generator the train
+    step draws its noise and timesteps from (or None).
+
+    The JAX package folds the step into a fixed key every step, so its
+    draws follow from the step alone; here one generator advances every
+    step, so its state is part of the train state and of a checkpoint."""
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.AdamW
     schedule: Callable[[int], float]
     ema: Optional[List[torch.Tensor]] = None
     grad_clip: float = 1.0
+    generator: Optional[torch.Generator] = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, tx: Tx,
@@ -139,3 +145,67 @@ class TrainState:
             raise ValueError("this train state keeps no EMA")
         names = [n for n, _ in self.model.named_parameters()]
         return dict(zip(names, self.ema))
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything the next update, EMA update and draw read, as one
+        flat dict of JSON scalars and CPU copies of the tensors: the
+        model's state dict under 'model/', the EMA under 'ema/' and AdamW's
+        moments under 'adam/exp_avg/' and 'adam/exp_avg_sq/' (each under
+        the parameter's name), 'step', AdamW's update count 'adam_count',
+        and the generator's state as hex under 'generator'. The EMA's decay
+        and the learning rate are functions of 'step'."""
+        def copy(t: torch.Tensor) -> torch.Tensor:
+            return t.detach().to("cpu", copy=True)
+
+        out: Dict[str, Any] = {f"model/{k}": copy(v) for k, v in
+                               self.model.state_dict().items()}
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        if self.ema is not None:
+            for (name, _), e in zip(self.model.named_parameters(), self.ema):
+                out[f"ema/{name}"] = copy(e)
+        counts = set()
+        for p, st in self.optimizer.state.items():
+            for key in ("exp_avg", "exp_avg_sq"):
+                out[f"adam/{key}/{names[id(p)]}"] = copy(st[key])
+            counts.add(int(st["step"]))
+        if len(counts) > 1:
+            raise ValueError(f"AdamW's parameters disagree on the update "
+                             f"count: {sorted(counts)}")
+        out["step"] = int(self.step)
+        out["adam_count"] = counts.pop() if counts else 0
+        if self.generator is not None:
+            out["generator"] = bytes(
+                self.generator.get_state().numpy()).hex()
+        return out
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Restore what `state_dict` returned, in place: the model's and
+        the EMA's tensors are copied into the existing ones, so the
+        optimizer keeps its parameters."""
+        self.model.load_state_dict(
+            {k[len("model/"):]: v for k, v in sd.items()
+             if k.startswith("model/")}, strict=True)
+        named = list(self.model.named_parameters())
+        if self.ema is not None:
+            with torch.no_grad():
+                for (name, _), e in zip(named, self.ema):
+                    e.copy_(sd[f"ema/{name}"])
+        opt = self.optimizer.state_dict()
+        index = {id(p): i for i, p in enumerate(
+            p for group in self.optimizer.param_groups
+            for p in group["params"])}
+        state = {}
+        for name, p in named:
+            if f"adam/exp_avg/{name}" in sd:
+                state[index[id(p)]] = {
+                    "step": torch.tensor(float(sd["adam_count"])),
+                    "exp_avg": sd[f"adam/exp_avg/{name}"],
+                    "exp_avg_sq": sd[f"adam/exp_avg_sq/{name}"]}
+        self.optimizer.load_state_dict({"state": state,
+                                        "param_groups": opt["param_groups"]})
+        self.step = int(sd["step"])
+        if self.generator is not None:
+            if "generator" not in sd:
+                raise ValueError("the checkpoint holds no generator state")
+            self.generator.set_state(torch.tensor(
+                list(bytes.fromhex(sd["generator"])), dtype=torch.uint8))

@@ -1,20 +1,23 @@
 """Where the time of a training step goes on the card, from torch.profiler.
 
-    python -m rangeldm_tpu_torch.utils.profiling
+    python -m rangeldm_tpu_torch.utils.profiling [--model rangedm_kitti360
+                                                  --batch 8]
 
-Builds `LdmTrainer` on the flagship `rangeldm_kitti360` config at batch 32
-in bf16 (the shipped YAML's values, which are the trainer's defaults) with
-seeded random weights, runs WARMUP fit steps on seeded synthetic range
-images, times STEPS more on the host clock, then profiles STEPS more. Prints one
-JSON line: wall time per step without and with the profiler, device busy
-time per step (the union of the kernels' intervals), the device's idle share
-(against the unprofiled wall time: the profiler slows the host, not the
-kernels), and device time per step by kernel group and by kernel name.
-Needs a CUDA device.
+Builds `LdmTrainer` on a zoo model (default the flagship
+`rangeldm_kitti360` at batch 32; pixel-space RangeDM trains at batch 8 in
+its shipped YAML) in bf16 with seeded random weights and the trainer's
+defaults for the rest, runs WARMUP fit steps on seeded synthetic range
+images, times STEPS more on the host clock, then profiles STEPS more.
+Prints one JSON line: wall time per step without and with the profiler,
+device busy time per step (the union of the kernels' intervals), the
+device's idle share (against the unprofiled wall time: the profiler slows
+the host, not the kernels), and device time per step by kernel group and
+by kernel name. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import subprocess
@@ -26,7 +29,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-BATCH, WARMUP, STEPS, TOP = 32, 3, 5, 20
+WARMUP, STEPS, TOP = 3, 5, 20
 # kernel-name patterns, first match wins
 GROUPS = [
     ("attention_bwd", r"attention_bwd"),
@@ -61,7 +64,11 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def main() -> dict:
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="rangeldm_kitti360")
+    ap.add_argument("--batch", type=int, default=32)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     from rangeldm_tpu_torch.train_ldm import LdmTrainer
@@ -70,12 +77,12 @@ def main() -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = LdmTrainer({"model": "rangeldm_kitti360",
+        trainer = LdmTrainer({"model": args.model,
                               "mixed_precision": "bf16",
                               "lr_warmup_steps": 2, "output_dir": tmp})
         h, w = trainer.spec.image_size
         gen = torch.Generator(device="cuda").manual_seed(0)
-        images = [torch.randn((BATCH, h, w, 2), generator=gen,
+        images = [torch.randn((args.batch, h, w, 2), generator=gen,
                               device="cuda")
                   for _ in range(WARMUP + 2 * STEPS)]
         batches = iter({"jpg": x} for x in images)
@@ -109,7 +116,8 @@ def main() -> dict:
                     for e in kernels]) / STEPS
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
     result = {
-        "card": smi, "batch": BATCH, "steps": STEPS,
+        "card": smi, "model": args.model, "batch": args.batch,
+        "steps": STEPS,
         "dtype": "bfloat16", "wall_ms_per_step": wall,
         "wall_ms_per_step_profiled": wall_profiled,
         "device_busy_ms_per_step": busy,

@@ -40,12 +40,13 @@ def _qkv(shape, dtype, seed=0, n=3):
             for _ in range(n)]
 
 
-# the flagship shapes at batch 4, ragged T, T = 1, a long T; then one head
-# at every tile edge of the bf16 kernels (16-wide tiles, 64 rows a block)
-# and at the longest T each kernel takes for the dtype ("max")
-SHAPES = [(64, 8, 1024), (128, 8, 256), (128, 8, 64), (5, 8, 200), (3, 8, 1),
-          (2, 8, 2048)] + [(1, 8, t) for t in (1, 15, 16, 17, 63, 65, 200,
-                                              1024, 2048)] + ["max"]
+# the flagship shapes at batch 4, RangeDM's at its training batch 8,
+# ragged T, T = 1, a long T; then one head at every tile edge of the bf16
+# kernels (16-wide tiles, 64 rows a block) and at the longest T each kernel
+# takes for the dtype ("max")
+SHAPES = [(64, 8, 1024), (128, 8, 256), (128, 8, 64), (512, 8, 256),
+          (512, 8, 64), (5, 8, 200), (3, 8, 1), (2, 8, 2048)] + [
+    (1, 8, t) for t in (1, 15, 16, 17, 63, 65, 200, 1024, 2048)] + ["max"]
 
 
 def _shape(shape, limit):
@@ -231,6 +232,43 @@ def test_conditional_unet_through_the_kernel(name):
         assert kernels.LAUNCHES[KERNEL] - before == 16
         want = plain(x, t)
     torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+def test_rangedm_unet_through_both_kernels():
+    """The full-width pixel-space RangeDM UNet (64x1024 image) in f32 at
+    batch 2: its 6 attention layers launch each kernel once in a forward
+    and backward, and the output and the attention layers' gradients agree
+    with the einsum path (5e-4; 1e-4 of each tensor's largest entry plus
+    1e-6 of the largest gradient)."""
+    from rangeldm_tpu_torch.models import zoo
+    cfg = zoo.rangedm_kitti360().unet
+    torch.manual_seed(0)
+    fused = UNet2D(cfg).cuda().train()
+    plain = UNet2D(dataclasses.replace(cfg, use_fused_attention=False))
+    plain.load_state_dict(fused.state_dict())
+    plain = plain.cuda().train()
+    h, w = cfg.sample_size
+    x, ct = _qkv((2, cfg.in_channels, w, h), torch.float32, seed=5, n=2)
+    ct = ct[:, :cfg.out_channels]
+    t = torch.tensor([10, 900], device="cuda")
+    outs, grads = [], []
+    for model in (fused, plain):
+        kernels.reset_launches()
+        out = model(x, t)
+        (out * ct).mean().backward()
+        torch.cuda.synchronize()
+        launched = (kernels.LAUNCHES[KERNEL], kernels.LAUNCHES[BWD_KERNEL])
+        assert launched == ((6, 6) if model is fused else (0, 0))
+        outs.append(out.detach())
+        grads.append({n: p.grad for n, p in model.named_parameters()
+                      if ".attentions." in n})
+    torch.testing.assert_close(outs[0], outs[1], rtol=5e-4, atol=5e-4)
+    got, want = grads
+    assert len(want) == 6 * 10          # norm, q, k, v, out: weight, bias
+    floor = 1e-6 * max(v.abs().max().item() for v in want.values())
+    for name, ref in want.items():
+        err = (got[name] - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item() + floor, (name, err)
 
 
 @pytest.mark.parametrize("mode", ["upsample", "inpainting"])

@@ -49,7 +49,8 @@ def test_scan_sees_the_whole_package():
             "sample_ldm.py", "convert.py", "chip_smoke.py", "train_ldm.py",
             "ldm_trainer.py", "train_state.py", "ema.py", "loggers.py",
             "config.py", "datasets.py", "projection.py", "sensors.py",
-            "conditions.py", "sample_conditional.py", "mae.py"} <= names
+            "conditions.py", "sample_conditional.py", "mae.py",
+            "checkpoint.py", "latent_cache.py", "image_logger.py"} <= names
 
 
 def _run(code_or_args):
@@ -79,6 +80,12 @@ def test_conditional_sampling_cli_starts_as_a_module():
     proc = _run(["-m", "rangeldm_tpu_torch.sample_conditional", "--help"])
     assert proc.returncode == 0, proc.stderr
     assert "--device" in proc.stdout and "--mode" in proc.stdout
+
+
+def test_training_cli_starts_as_a_module():
+    proc = _run(["-m", "rangeldm_tpu_torch.train_ldm", "--help"])
+    assert proc.returncode == 0, proc.stderr
+    assert "--cfg" in proc.stdout and "--device" in proc.stdout
 
 
 def test_sampling_cli_starts_as_a_module():

@@ -94,7 +94,13 @@ CASES = {
     "v_min_snr": dict(prediction_type="v_prediction", snr_gamma=5.0),
     "grad_accum_2": dict(prediction_type="epsilon", grad_accum_steps=2),
     "moments": dict(prediction_type="epsilon", moments=True),
+    # pixel space (RangeDM): no VAE, the images shifted and scaled
+    "pixel": dict(prediction_type="epsilon", pixel=True,
+                  pixel_scaling=0.5, shifting_factor=0.1),
 }
+# the pixel case's UNet works on the (8, 64) image itself
+PIXEL_UNET = dict(TINY_UNET, sample_size=IMAGE, in_channels=3,
+                  out_channels=2)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -102,12 +108,15 @@ def test_train_step_matches_jax(case):
     opts = dict(CASES[case])
     pred = opts.pop("prediction_type")
     use_moments = opts.pop("moments", False)
+    pixel = opts.pop("pixel", False)
     seed = sorted(CASES).index(case)
-    ucfg, uparams = jax_unet_params(seed=30 + seed, **TINY_UNET)
+    ucfg, uparams = jax_unet_params(seed=30 + seed,
+                                    **(PIXEL_UNET if pixel else TINY_UNET))
     vcfg, vparams = jax_vae_params(seed=40 + seed)
     rng = np.random.default_rng(seed)
     images = rng.standard_normal((BATCH, *IMAGE, 2)).astype(np.float32)
     lat_hw = ucfg.sample_size
+    z = ucfg.out_channels
     moments = rng.standard_normal((BATCH, *lat_hw, 8)).astype(np.float32)
     k = opts.get("grad_accum_steps", 1)
 
@@ -118,8 +127,9 @@ def test_train_step_matches_jax(case):
     step_fn = jax_make_ldm_train_step(
         lambda p, x, t: junet.apply({"params": p}, x, t), jsched,
         _store_grads(), JaxLdmTrainConfig(**opts),
-        vae_apply=lambda p, x: jvae.apply(p, x, method="encode_moments"),
-        vae_params={"params": vparams})
+        vae_apply=None if pixel else (
+            lambda p, x: jvae.apply(p, x, method="encode_moments")),
+        vae_params=None if pixel else {"params": vparams})
     key = jax.random.PRNGKey(seed)
     jbatch = {"moments": jnp.asarray(moments)} if use_moments \
         else jnp.asarray(images)
@@ -129,7 +139,7 @@ def test_train_step_matches_jax(case):
         """One compile for the state, the step and the draws."""
         state = JaxTrainState.create(params, _store_grads(), with_ema=False)
         state, metrics = step_fn(state, batch, key)
-        return state.opt_state, metrics, _jax_draws(key, BATCH, lat_hw, 4, k)
+        return state.opt_state, metrics, _jax_draws(key, BATCH, lat_hw, z, k)
 
     grads, jmetrics, (post, noise, ts) = jax.tree.map(
         np.asarray, jax_step(uparams, jbatch))
@@ -138,7 +148,7 @@ def test_train_step_matches_jax(case):
     # the port, on the same weights and draws
     sched = Schedule(ScheduleConfig(prediction_type=pred))
     model = port_unet(ucfg, uparams).train()
-    vae = port_vae(vcfg, vparams).requires_grad_(False)
+    vae = None if pixel else port_vae(vcfg, vparams).requires_grad_(False)
     state = TrainState.create(model, make_adamw(model.parameters(),
                                                 grad_clip=1e9),
                               with_ema=False)
