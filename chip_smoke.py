@@ -44,6 +44,23 @@ Phases, each printing one JSON line:
                  step 6, the final pipeline reloaded through its run record
                  and sampled with DDIM-50; then the flagship config with
                  cache_latents for 3 steps, and the moments cache reused
+  10. eval     - sample, score and gate: `parity_gate.main` on a seeded
+                 full-width flagship pipeline (DDIM-50, 32 samples at batch
+                 32, bf16) and a seeded darknet53 checkpoint in the released
+                 format, against a synthetic held-out drive of 32 scans:
+                 exit code 1, finite MMD, JSD and FRD, 16 x (1 + 50) forward
+                 kernel launches; `python -m rangeldm_tpu_torch.evaluate`
+                 on the gate's dumps (MMD, JSD, FRD; a process of its own)
+                 and `evaluate.main` on phase 7's densification triplets
+                 (IoU, accuracy, MAE); RangeNet++ on the card against the
+                 CPU and its rate at batch 8 with TF32 off and on, and how
+                 far TF32 moves the FRD activations and value; the float32
+                 MMD on the card against the float64 host value; chamfer
+                 on two 120,000-point scans against a float64 k-d tree
+  11. t64      - the bf16 flagship UNet forward and a DDIM-50 chain with the
+                 six T=64 attention layers on the kernel against the same
+                 model with them on the plain version (a known divergence by
+                 design: the number, no bound)
 Then the kernel summary line, the card line, and the result line. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -72,6 +89,7 @@ BWD_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: 3e-2}
 UNET_TOL = 5e-4
 GRAD_TOL = (1e-3, 1e-6)     # per tensor: 1e-3 * max|ref| + 1e-6
 BATCH = 4
+GATE_STAGE_BATCH = 1           # the parity gate's unet_stage_report
 TRAIN_BATCH = 32
 TRAIN_STEPS = 10
 SEED = 0
@@ -95,6 +113,14 @@ FLAGSHIP_YAML = os.path.join("rangeldm_tpu", "configs",
                              "rangeldm_kitti360.yaml")
 CLI_STEPS = (4, 6)             # run A's last step, and the resumed run B's
 CACHE_STEPS = 3
+EVAL_SCANS = 32                # held-out scans of the eval root, and --samples
+EVAL_BATCH = 32                # the parity gate's default --batch_size
+EVAL_STEPS = 50
+RANGENET_BATCH = 8             # frd_pipeline's batch
+RANGENET_TOL = 1e-5            # card against CPU, of the features' scale:
+                               # a forward with TF32 on lies above it
+CHAMFER_TOL = 1e-3             # float32 on the card against float64
+DEVICE = "cuda"                # of the eval and t64 phases
 # rangeldm_tpu/configs/rangeldm_kitti360.yaml, the shipped flagship training
 # config, with the warm-up cut to 2 steps so that 10 steps move the weights;
 # output_dir is a temporary directory set at run time
@@ -305,15 +331,16 @@ def _close(kernel, got, want, dtype) -> tuple:
 
 
 def phase_kernels(attention, clock_hz: float):
-    """Each kernel at the flagship shapes of sampling (batch 4), the
-    conditional CLI (batch 8) and training (batch 32), plus a ragged T,
+    """Each kernel at the flagship shapes of the parity gate's UNet stage
+    report (batch 1), sampling (batch 4), the conditional CLI (batch 8)
+    and training and the gate's sampling (batch 32), plus a ragged T,
     against its plain version; times of the
     kernel, the plain version and one PyTorch call (SDPA forward, or the
     autograd backward of SDPA) on the same inputs."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [(kernel, "rangeldm_kitti360", batch, shape, layers)
              for kernel in ("attention_fwd", "attention_bwd")
-             for batch in (BATCH, CLI_BATCH, TRAIN_BATCH)
+             for batch in (GATE_STAGE_BATCH, BATCH, CLI_BATCH, TRAIN_BATCH)
              for shape, layers in _shapes(batch)]
     cases += [(kernel, "rangedm_kitti360", RANGEDM_BATCH, shape, layers)
               for kernel in ("attention_fwd", "attention_bwd")
@@ -623,13 +650,13 @@ def synthetic_scan(rng, n: int) -> np.ndarray:
                      rng.uniform(0.0, 1.0, n)], axis=1).astype(np.float32)
 
 
-def make_kitti_root(root: str) -> str:
+def make_kitti_root(root: str, held_out: int = HELD_OUT_SCANS,
+                    train: int = TRAIN_SCANS) -> str:
     """The velodyne_points/data/*.bin layout of KITTI-360's raw scans, with
-    HELD_OUT_SCANS scans in a held-out drive and TRAIN_SCANS in a train
-    drive."""
+    `held_out` scans in a held-out drive and `train` in a train drive."""
     rng = np.random.default_rng(SEED)
-    for drive, count in (("2013_05_28_drive_0000_sync", HELD_OUT_SCANS),
-                         ("2013_05_28_drive_0003_sync", TRAIN_SCANS)):
+    for drive, count in (("2013_05_28_drive_0000_sync", held_out),
+                         ("2013_05_28_drive_0003_sync", train)):
         d = os.path.join(root, "data_3d_raw", drive, "velodyne_points",
                          "data")
         os.makedirs(d)
@@ -667,10 +694,12 @@ def _triplets(out: str, prefix: str) -> dict:
     return arrays
 
 
-def phase_conditional(kernels, models, data_root: str, smi) -> int:
+def phase_conditional(kernels, models, data_root: str, smi,
+                      samples_root: str) -> int:
     """Both full-width conditional models, through the pipeline API and the
-    conditional CLI on conditions from the port's dataset. Returns the
-    forward kernel's launches."""
+    conditional CLI on conditions from the port's dataset; the CLI writes
+    its triplets under `samples_root`. Returns the forward kernel's
+    launches."""
     from rangeldm_tpu_torch import data, sample_conditional
     from rangeldm_tpu_torch.convert import save_diffusers_pipeline
     from rangeldm_tpu_torch.metrics import densification_mae, inpainting_mae
@@ -721,7 +750,7 @@ def phase_conditional(kernels, models, data_root: str, smi) -> int:
             require(n_api == 16 * 50, f"{mode}: {n_api} kernel launches, "
                                       f"expected {16 * 50}")
 
-            out = os.path.join(tmp, f"{mode}_samples")
+            out = os.path.join(samples_root, f"{mode}_samples")
             kernels.reset_launches()
             t0 = time.perf_counter()
             written = sample_conditional.main(
@@ -1101,6 +1130,343 @@ def phase_train_cli(kernels, data_root: str, smi) -> dict:
          seconds=time.perf_counter() - t_phase, **fields)
     return total
 
+def make_rangenet_ckpt(path: str) -> str:
+    """A seeded darknet53 checkpoint in the released format: the state
+    dicts of the backbone, decoder and head in files named `backbone`,
+    `segmentation_decoder` and `segmentation_head`, with random weights,
+    BatchNorm statistics and affine terms."""
+    from rangeldm_tpu_torch.metrics.rangenet import RangeNet
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = RangeNet()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                m.weight.normal_(0, 0.02, generator=gen)
+                if m.bias is not None:
+                    m.bias.normal_(0, 0.02, generator=gen)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.normal_(0.7, 0.1, generator=gen)
+                m.bias.normal_(0, 0.2, generator=gen)
+                m.running_mean.normal_(0, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    os.makedirs(path)
+    for name, module in (("backbone", model.backbone),
+                         ("segmentation_decoder", model.decoder),
+                         ("segmentation_head", model.head)):
+        torch.save(module.state_dict(), os.path.join(path, name))
+    return path
+
+
+def rangenet_work(h: int = 64, w: int = 1024) -> tuple:
+    """(float32 operations, parameters) of one darknet53 forward with the
+    head on a 5 x h x w scan, counted on the meta device."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from rangeldm_tpu_torch.metrics.rangenet import RangeNet
+
+    with torch.device("meta"):
+        model = RangeNet()
+        x = torch.zeros(1, 5, h, w)
+    counter = FlopCounterMode(display=False)
+    with counter, torch.no_grad():
+        model(x)
+    return (counter.get_total_flops(),
+            sum(p.numel() for p in model.parameters()))
+
+
+def chamfer_f64(a: np.ndarray, b: np.ndarray) -> float:
+    """Symmetric squared chamfer distance in float64, by exact nearest
+    neighbours from a k-d tree."""
+    from scipy.spatial import cKDTree
+
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    d_ab = cKDTree(b).query(a)[0]
+    d_ba = cKDTree(a).query(b)[0]
+    return float(np.mean(d_ab ** 2) + np.mean(d_ba ** 2))
+
+
+def phase_eval(kernels, models, samples_root: str, smi) -> int:
+    """Sample, score and gate at full width: the parity gate
+    (`parity_gate.main`) on a seeded flagship pipeline with DDIM-50 over
+    EVAL_SCANS samples in bf16, scored with MMD, JSD and FRD (RangeNet++ on
+    a seeded darknet53 checkpoint) against a synthetic held-out drive; the
+    evaluate CLI on the gate's dumps (`python -m rangeldm_tpu_torch.evaluate`
+    in a process of its own, last, so that every timing of the phase is
+    taken with nothing else running) and on phase 7's
+    densification triplets (IoU, accuracy, MAE); RangeNet on the card
+    against the CPU (with TF32 on as the control the bound must catch), its
+    rate with TF32 off and on, and how far TF32 moves
+    the FRD activations and value; the float32 MMD on the card against the
+    float64 one, and chamfer on two 120,000-point scans against a float64
+    k-d tree. Returns the forward kernel's launches in the gate."""
+    from rangeldm_tpu_torch import evaluate, parity_gate
+    from rangeldm_tpu_torch.convert import save_diffusers_pipeline
+    from rangeldm_tpu_torch.metrics import chamfer, frd_pipeline, mmd
+    from rangeldm_tpu_torch.metrics.frd import frd_from_activations
+    from rangeldm_tpu_torch.metrics.frd import frd_indices
+    from rangeldm_tpu_torch.metrics.histogram import kitti_histogram
+    from rangeldm_tpu_torch.utils.precision import tf32
+
+    t_phase = time.perf_counter()
+    fields = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = make_kitti_root(os.path.join(tmp, "kitti360"),
+                               held_out=EVAL_SCANS, train=0)
+        ckpt = make_rangenet_ckpt(os.path.join(tmp, "rangenet"))
+        spec = models.rangeldm_kitti360()
+        torch.manual_seed(SEED)
+        weights = os.path.join(tmp, "pipeline")
+        save_diffusers_pipeline(weights, models.UNet2D(spec.unet),
+                                models.AutoencoderKL(spec.vae),
+                                dataclasses.asdict(spec.schedule))
+        out = os.path.join(tmp, "gate")
+
+        # the gate, end to end
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        code = parity_gate.main([
+            "--weights", weights, "--data", root, "--out", out,
+            "--samples", str(EVAL_SCANS), "--batch_size", str(EVAL_BATCH),
+            "--steps", str(EVAL_STEPS), "--rangenet", ckpt])
+        torch.cuda.synchronize()
+        gate_s = time.perf_counter() - t0
+        launches = kernels.LAUNCHES["attention_fwd"]
+        gate_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(out, "parity_report.json")) as f:
+            report = json.load(f)
+        scores = report["scores"]
+        n_batches = -(-EVAL_SCANS // EVAL_BATCH)
+        require(code == 1, f"the gate exited {code}, expected 1 (FAIL) "
+                           f"on random weights: {report.get('error')}")
+        require(report["pass"] is False and report["n_sampled"] == EVAL_SCANS
+                and scores["n_gen"] == scores["n_ref"] == EVAL_SCANS,
+                f"gate report: {report}")
+        require(all(np.isfinite(scores[k]) for k in ("mmd", "jsd", "frd")),
+                f"gate scores {scores}")
+        require(launches == 16 * (1 + EVAL_STEPS * n_batches),
+                f"the gate launched attention_fwd {launches} times, "
+                f"expected {16 * (1 + EVAL_STEPS * n_batches)}")
+        fields.update(gate_seconds=gate_s, gate_launches=launches,
+                      gate_peak_memory_gib=gate_peak, gate_scores=scores,
+                      vae_stage=report["vae_stage"],
+                      unet_stage=report["unet_stage"])
+
+        # RangeNet on the card against the CPU, and its rate (the card is
+        # otherwise idle here)
+        gen_files = frd_pipeline.generated_sample_files(out, EVAL_SCANS)
+        ref_files = evaluate.kitti_reference_files(EVAL_SCANS, root)
+        x = torch.from_numpy(np.stack([
+            frd_pipeline.project_scan(evaluate.load_bin(f), 64, 1024)
+            for f in ref_files[:RANGENET_BATCH]]))
+        model = frd_pipeline.load_rangenet(ckpt)
+        cpu_model = frd_pipeline.load_rangenet(ckpt, device="cpu")
+        with torch.inference_mode():
+            x2 = x[:2].to(DEVICE)
+            on_card = model(x2)[0].cpu()
+            with tf32(True):
+                on_card_tf32 = model.decoder(*model.backbone(x2)).cpu()
+            on_cpu = cpu_model(x[:2])[0]
+            scale = on_cpu.abs().max().item()
+            card_err = (on_card - on_cpu).abs().max().item()
+            tf32_err = (on_card_tf32 - on_cpu).abs().max().item()
+            xb = x.to(DEVICE)
+
+            def features():
+                return model.decoder(*model.backbone(xb))
+
+            with tf32(True):
+                tf32_ms = cuda_ms(features, 5)
+            with tf32(False):
+                f32_ms = cuda_ms(features, 5)
+            full_ms = cuda_ms(lambda: model(xb), 5)
+        require(card_err <= RANGENET_TOL * scale,
+                f"RangeNet features on the card differ from the CPU by "
+                f"{card_err} at scale {scale}")
+        require(tf32_err > RANGENET_TOL * scale,
+                f"with TF32 on, RangeNet features on the card differ from "
+                f"the CPU by only {tf32_err} at scale {scale}: the bound "
+                f"{RANGENET_TOL} cannot tell a forward that leaks TF32")
+        flops, params = rangenet_work()
+        fields.update(rangenet_card_vs_cpu_max_abs=card_err,
+                      rangenet_feature_scale=scale,
+                      rangenet_card_vs_cpu_rel=card_err / scale,
+                      rangenet_tf32_vs_cpu_rel=tf32_err / scale,
+                      rangenet_params=params,
+                      rangenet_gflop_per_scan=flops / 1e9,
+                      rangenet_batch=RANGENET_BATCH,
+                      rangenet_features_ms=f32_ms,
+                      rangenet_scans_per_s=RANGENET_BATCH / f32_ms * 1e3,
+                      rangenet_scans_per_s_tf32=RANGENET_BATCH / tf32_ms
+                      * 1e3,
+                      rangenet_forward_with_head_ms=full_ms,
+                      rangenet_f32_tflops=flops * RANGENET_BATCH
+                      / full_ms / 1e9)
+
+        # evaluate.main in this process: MMD and JSD on the gate's dumps,
+        # IoU, accuracy and MAE on phase 7's densification triplets
+        os.environ["KITTI360_DATASET"] = root
+        try:
+            t0 = time.perf_counter()
+            hist = evaluate.main(["--exp", out, "--mmd", "--jsd",
+                                  "--limit", str(EVAL_SCANS)])
+            hist_s = time.perf_counter() - t0
+        finally:
+            del os.environ["KITTI360_DATASET"]
+        require(hist["mmd"] == scores["mmd"] and hist["jsd"] == scores["jsd"],
+                f"evaluate {hist} against the gate's {scores}")
+        dens = os.path.join(samples_root, "upsample_samples")
+        t0 = time.perf_counter()
+        seg = evaluate.main(["--exp", dens, "--iou", "--accuracy", "--mae",
+                             "--cond_prefix", "densification", "--rangenet",
+                             ckpt, "--limit", str(CLI_BATCH)])
+        seg_s = time.perf_counter() - t0
+        require(all(np.isfinite(v) for v in seg.values())
+                and 0 <= seg["iou"] <= 1 and 0 <= seg["accuracy"] <= 1,
+                f"evaluate on the densification triplets: {seg}")
+        fields.update(hist_mmd_jsd_seconds=hist_s,
+                      segmentation_seconds=seg_s, densification=seg)
+
+        # how far TF32 moves the gathered activations and FRD
+        idx = torch.as_tensor(frd_indices(), device=DEVICE)
+
+        def acts(files, enabled):
+            def fn(batch):
+                with tf32(enabled):
+                    feats = model.decoder(*model.backbone(batch))
+                return feats.flatten(1)[:, idx]
+            return frd_pipeline.run_batched(fn, DEVICE, (
+                evaluate.load_bin(f) for f in files), RANGENET_BATCH,
+                64, 1024)
+
+        t0 = time.perf_counter()
+        gen_f32, ref_f32 = acts(gen_files, False), acts(ref_files, False)
+        acts_s = time.perf_counter() - t0
+        gen_tf32, ref_tf32 = acts(gen_files, True), acts(ref_files, True)
+        act_scale = float(np.abs(gen_f32).max())
+        act_err = float(max(np.abs(gen_tf32 - gen_f32).max(),
+                            np.abs(ref_tf32 - ref_f32).max()))
+        t0 = time.perf_counter()
+        frd_tf32 = frd_from_activations(gen_tf32, ref_tf32)
+        frechet_s = time.perf_counter() - t0
+        fields.update(frd_activations_seconds=acts_s,
+                      frechet_seconds=frechet_s,
+                      tf32_activation_max_abs=act_err,
+                      tf32_activation_rel=act_err / act_scale,
+                      frd_tf32=frd_tf32,
+                      frd_tf32_rel=abs(frd_tf32 - scores["frd"])
+                      / abs(scores["frd"]))
+
+        # float32 MMD on the card against the float64 host value
+        gen_h = evaluate.histograms(gen_files, kitti_histogram)
+        ref_h = evaluate.histograms(ref_files, kitti_histogram)
+        t0 = time.perf_counter()
+        mmd_card = mmd.compute_mmd(ref_h, gen_h, device=True)
+        mmd_card_s = time.perf_counter() - t0
+        mmd_rel = abs(mmd_card - scores["mmd"]) / abs(scores["mmd"])
+        require(mmd_rel <= 1e-4, f"MMD on the card {mmd_card} against "
+                                 f"the host's {scores['mmd']}")
+        fields.update(mmd_card=mmd_card, mmd_card_rel=mmd_rel,
+                      mmd_card_seconds=mmd_card_s)
+
+        # chamfer on two scans of SCAN_POINTS points
+        a, b = (evaluate.load_bin(f)[:, :3] for f in ref_files[:2])
+        require(len(a) == len(b) == SCAN_POINTS,
+                f"scan sizes {len(a)}")
+        ca, cb = (torch.from_numpy(v).to(DEVICE) for v in (a, b))
+        cd = float(chamfer.chamfer_distance(ca, cb))
+        cd_ms = cuda_ms(lambda: chamfer.chamfer_distance(ca, cb), 3, 1)
+        cd64 = chamfer_f64(a, b)
+        cd_rel = abs(cd - cd64) / cd64
+        require(cd_rel <= CHAMFER_TOL, f"chamfer on the card {cd} "
+                                       f"against float64 {cd64}")
+        fields.update(chamfer=cd, chamfer_f64=cd64, chamfer_rel=cd_rel,
+                      chamfer_ms=cd_ms)
+
+        # the evaluate CLI on the gate's dumps, as a user runs it, in its
+        # own process
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, KITTI360_DATASET=root, PYTHONPATH=os.pathsep
+                   .join(filter(None, (here, os.environ.get("PYTHONPATH")))))
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "rangeldm_tpu_torch.evaluate", "--exp",
+             out, "--mmd", "--jsd", "--frd", "--rangenet", ckpt, "--limit",
+             str(EVAL_SCANS), "--device", DEVICE], cwd=here, env=env,
+            capture_output=True, text=True, timeout=900)
+        cli_s = time.perf_counter() - t0
+        require(cli.returncode == 0, f"python -m rangeldm_tpu_torch.evaluate "
+                                     f"exited {cli.returncode}: "
+                                     f"{cli.stderr[-2000:]}")
+        res = json.loads(cli.stdout.strip().splitlines()[-1])
+        frd_rel = abs(res["frd"] - scores["frd"]) / abs(scores["frd"])
+        require(res["mmd"] == scores["mmd"] and res["jsd"] == scores["jsd"]
+                and frd_rel <= 1e-3,
+                f"evaluate's {res} against the gate's {scores}")
+        fields.update(evaluate_cli_seconds=cli_s, evaluate_cli=res,
+                      evaluate_frd_rel=frd_rel)
+    emit("eval", card=smi, samples=EVAL_SCANS, batch=EVAL_BATCH,
+         steps=EVAL_STEPS, dtype="bfloat16",
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         seconds=time.perf_counter() - t_phase, **fields)
+    return launches
+
+
+def phase_t64(models, smi):
+    """The known bf16 divergence at T=64: the flagship UNet forward and a
+    DDIM-50 chain in bf16 with its six T=64 attention layers on the kernel
+    (which rounds e and the denominator to bf16, as the TPU kernel does)
+    against the same model with those layers on `attention_t_reference`
+    (the JAX package sends T <= 64 to an f32 softmax). Reports the max-abs
+    difference of each; no bound, the difference is by design."""
+    from rangeldm_tpu_torch import sample_ldm
+    from rangeldm_tpu_torch.convert import save_diffusers_pipeline
+    from rangeldm_tpu_torch.models.unet import Attention
+
+    spec = models.rangeldm_kitti360()
+    torch.manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pipeline")
+        save_diffusers_pipeline(path, models.UNet2D(spec.unet),
+                                models.AutoencoderKL(spec.vae),
+                                dataclasses.asdict(spec.schedule))
+        pipe = sample_ldm.load_diffusers_pipeline(path)
+    unet = pipe["unet"]
+    tokens = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: tokens.__setitem__(mod, args[0].shape[2]
+                                             * args[0].shape[3]))
+        for m in unet.modules() if isinstance(m, Attention)]
+    h, w = spec.unet.sample_size
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x = torch.randn((BATCH, spec.unet.in_channels, w, h), generator=gen,
+                    device=DEVICE, dtype=torch.bfloat16)
+    t = torch.tensor(500, device=DEVICE)
+    sample = sample_ldm.build_sampler(pipe, BATCH, 50)
+    out = {}
+    for name in ("kernel", "reference"):
+        with torch.inference_mode():
+            eps = unet(x, t).float()
+        if name == "kernel":
+            for hook in hooks:
+                hook.remove()
+            t64 = [m for m, n in tokens.items() if n == 64]
+            require(len(t64) == 6, f"{len(t64)} attention layers at T=64")
+        images = sample(sample_ldm.batch_generator(pipe["device"], SEED, 0))
+        out[name] = (eps, images.float())
+        for m in t64:
+            m.use_fused = False
+    for m in t64:
+        m.use_fused = None
+    (eps_k, img_k), (eps_r, img_r) = out["kernel"], out["reference"]
+    emit("t64", card=smi, dtype="bfloat16", batch=BATCH, layers=len(t64),
+         unet_fwd_max_abs=(eps_k - eps_r).abs().max().item(),
+         unet_fwd_scale=eps_r.abs().max().item(),
+         ddim50_max_abs=(img_k - img_r).abs().max().item(),
+         ddim50_scale=img_r.abs().max().item(),
+         ddim50_mean_abs=(img_k - img_r).abs().mean().item())
+
 
 def summary(rows, launches):
     """One entry per kernel, over the attention layers of one flagship UNet
@@ -1151,10 +1517,14 @@ def main() -> int:
     trained = phase_train(kernels, smi)
     with tempfile.TemporaryDirectory() as tmp:
         data_root = make_kitti_root(os.path.join(tmp, "kitti360"))
-        launches["attention_fwd"] += phase_conditional(kernels, models,
-                                                       data_root, smi)
+        samples_root = os.path.join(tmp, "samples")
+        launches["attention_fwd"] += phase_conditional(
+            kernels, models, data_root, smi, samples_root)
         cond_trained = phase_cond_train(kernels, data_root, smi)
         cli = phase_train_cli(kernels, data_root, smi)
+        launches["attention_fwd"] += phase_eval(kernels, models,
+                                                samples_root, smi)
+    phase_t64(models, smi)
     launches["attention_fwd"] += (trained["attention_fwd"]
                                   + cond_trained["attention_fwd"]
                                   + cli["attention_fwd"])

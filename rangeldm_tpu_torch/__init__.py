@@ -1,8 +1,9 @@
 """RangeLDM on PyTorch and CUDA: latent sampling, conditional generation
 (4x beam densification and azimuth-sector inpainting), latent-diffusion
-training of the flagship and conditional models, the LiDAR data loader and
-the MAE metrics of the JAX package `rangeldm_tpu`, ported to one NVIDIA
-H100.
+training of the flagship and conditional models, the LiDAR data loader,
+the scores of generated scans (MMD, JSD, FRD with RangeNet++, IoU,
+accuracy, MAE, chamfer) and the release parity gate of the JAX package
+`rangeldm_tpu`, ported to one NVIDIA H100.
 
 Tensors inside the package use the reference's torch layout (B, C,
 W=azimuth, H=beams); images and point clouds at the public functions use

@@ -5,7 +5,9 @@
   then the raw little-endian tensors), so no extra package is needed.
 * `unet_state_dict_from_jax` / `vae_state_dict_from_jax`: the JAX package's
   params trees (numpy leaves) -> this package's state dicts, following the
-  key grammar of rangeldm_tpu/convert/export.py.
+  key grammar of rangeldm_tpu/convert/export.py;
+  `rangenet_state_dicts_from_jax`: the JAX RangeNet's variables -> the
+  released RangeNet++ state dicts.
 * The released diffusers pipeline layout ({unet, unet_ema, vae,
   scheduler}/, ldm/train_unconditional.py:654-682): `load_diffusers_unet`,
   `load_diffusers_vae` (diffusers VAE keys -> sgm keys) and
@@ -28,6 +30,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from rangeldm_tpu_torch.metrics.rangenet import BLOCKS_53 as RANGENET_BLOCKS
 from rangeldm_tpu_torch.models.unet import UNetConfig
 from rangeldm_tpu_torch.models.vae import VaeConfig
 
@@ -153,6 +156,74 @@ def unet_state_dict_from_jax(params: Dict) -> StateDict:
 def vae_state_dict_from_jax(params: Dict) -> StateDict:
     """The JAX AutoencoderKL params tree -> this package's state dict."""
     return _from_jax(params, _vae_key)
+
+
+def _rangenet_tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def rangenet_state_dicts_from_jax(variables: Dict):
+    """The JAX RangeNet's variables ({"params", "batch_stats"}, numpy or
+    array leaves) -> (backbone, decoder, head) state dicts in the released
+    lidar-bonnetal grammar, the inverse of the JAX package's
+    `convert_rangenet_state_dict` (rangeldm_tpu/metrics/rangenet.py:
+    198-257). Conv kernels go HWIO -> OIHW, the upconv (1, 4, in, out) ->
+    (in, out, 1, 4), BatchNorm scale/bias/mean/var -> weight/bias/
+    running_mean/running_var. The decoder's and head's dicts are None when
+    the variables have none."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+
+    def node(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    def conv(sd, key, path):
+        sd[key + ".weight"] = _rangenet_tensor(
+            np.transpose(node(params, path + ("kernel",)), (3, 2, 0, 1)))
+
+    def bn(sd, key, path):
+        p, s = node(params, path), node(stats, path)
+        sd[key + ".weight"] = _rangenet_tensor(p["scale"])
+        sd[key + ".bias"] = _rangenet_tensor(p["bias"])
+        sd[key + ".running_mean"] = _rangenet_tensor(s["mean"])
+        sd[key + ".running_var"] = _rangenet_tensor(s["var"])
+        sd[key + ".num_batches_tracked"] = torch.tensor(0)
+
+    def block(sd, key, path):
+        for i in (1, 2):
+            conv(sd, f"{key}.conv{i}", path + (f"c{i}", "conv"))
+            bn(sd, f"{key}.bn{i}", path + (f"c{i}", "bn"))
+
+    backbone: StateDict = {}
+    conv(backbone, "conv1", ("backbone", "conv1", "conv"))
+    bn(backbone, "bn1", ("backbone", "conv1", "bn"))
+    for stage, nblocks in enumerate(RANGENET_BLOCKS, start=1):
+        pre = f"enc{stage}"
+        conv(backbone, f"{pre}.conv", ("backbone", f"{pre}_conv", "conv"))
+        bn(backbone, f"{pre}.bn", ("backbone", f"{pre}_conv", "bn"))
+        for b in range(nblocks):
+            block(backbone, f"{pre}.residual_{b}",
+                  ("backbone", f"{pre}_res{b}"))
+
+    decoder: Optional[StateDict] = None
+    if "dec5" in params:
+        decoder = {}
+        for s in range(len(RANGENET_BLOCKS), 0, -1):
+            dec = f"dec{s}"
+            up = params[dec]["upconv"]
+            decoder[f"{dec}.upconv.weight"] = _rangenet_tensor(
+                np.transpose(up["kernel"], (2, 3, 0, 1)))
+            decoder[f"{dec}.upconv.bias"] = _rangenet_tensor(up["bias"])
+            bn(decoder, f"{dec}.bn", (dec, "bn"))
+            block(decoder, f"{dec}.residual", (dec, "residual"))
+
+    head: Optional[StateDict] = None
+    if "head_conv" in params:
+        head = {}
+        conv(head, "1", ("head_conv",))
+        head["1.bias"] = _rangenet_tensor(params["head_conv"]["bias"])
+    return backbone, decoder, head
 
 
 # ---------------------------------------------------------------------------

@@ -211,19 +211,22 @@ def write_png_gray(path: str, img: np.ndarray) -> None:
 
 
 def save_outputs(images, spec: SensorSpec, out_dir: str, start_idx: int,
-                 max_depth: float = 90.0) -> None:
-    """Back-project and write .bin / .png per sample
-    (ldm/inference.py:159-183). `images` (B, H, W, C) are processed on the
-    device they lie on."""
+                 max_depth: float = 90.0, write_png: bool = True) -> None:
+    """Back-project and write .bin (and, with write_png, .png) files per
+    sample (ldm/inference.py:159-183). `images` (B, H, W, C) are processed
+    on the device they lie on."""
     imgs = torch.as_tensor(images).float()
     with torch.inference_mode():
         pcs, valid = to_point_cloud_masked(imgs, spec, max_depth=max_depth)
-        bev = to_voxel(imgs, spec)
     pcs, valid = pcs.cpu().numpy(), valid.cpu().numpy()
     os.makedirs(out_dir, exist_ok=True)
     for j in range(imgs.shape[0]):
         pcs[j][valid[j]].astype(np.float32).tofile(
             os.path.join(out_dir, f"{start_idx + j}.bin"))
+    if not write_png:
+        return
+    with torch.inference_mode():
+        bev = to_voxel(imgs, spec)
     bev = (torch.clamp(bev[:, 0], 0, 1) * 255).to(torch.uint8).cpu().numpy()
     rng = torch.clamp((imgs[..., 0] * spec.std + spec.mean) / spec.range_fill,
                       0, 1) * 255

@@ -40,12 +40,13 @@ def _qkv(shape, dtype, seed=0, n=3):
             for _ in range(n)]
 
 
-# the flagship shapes at batch 4, RangeDM's at its training batch 8,
-# ragged T, T = 1, a long T; then one head at every tile edge of the bf16
-# kernels (16-wide tiles, 64 rows a block) and at the longest T each kernel
-# takes for the dtype ("max")
-SHAPES = [(64, 8, 1024), (128, 8, 256), (128, 8, 64), (512, 8, 256),
-          (512, 8, 64), (5, 8, 200), (3, 8, 1), (2, 8, 2048)] + [
+# the flagship shapes at batch 4 and at the parity gate's stage-report
+# batch 1, RangeDM's at its training batch 8, ragged T, T = 1, a long T;
+# then one head at every tile edge of the bf16 kernels (16-wide tiles, 64
+# rows a block) and at the longest T each kernel takes for the dtype ("max")
+SHAPES = [(64, 8, 1024), (128, 8, 256), (128, 8, 64), (16, 8, 1024),
+          (32, 8, 256), (32, 8, 64), (512, 8, 256), (512, 8, 64),
+          (5, 8, 200), (3, 8, 1), (2, 8, 2048)] + [
     (1, 8, t) for t in (1, 15, 16, 17, 63, 65, 200, 1024, 2048)] + ["max"]
 
 
@@ -333,3 +334,109 @@ def test_conditional_train_step_through_both_kernels(mode):
         assert got[name] is not None and torch.isfinite(got[name]).all()
         err = (got[name] - ref).abs().max().item()
         assert err <= 1e-4 * ref.abs().max().item() + floor, (name, err)
+
+
+# ---------------------------------------------------------------------------
+# the scoring path: RangeNet++, MMD, chamfer and histograms on the card
+# ---------------------------------------------------------------------------
+
+def _rangenet(seed=0):
+    """A darknet53 with seeded random weights and BatchNorm statistics."""
+    from rangeldm_tpu_torch.metrics.rangenet import RangeNet
+    gen = torch.Generator().manual_seed(seed)
+    model = RangeNet()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                m.weight.normal_(0, 0.02, generator=gen)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.normal_(0.7, 0.1, generator=gen)
+                m.bias.normal_(0, 0.2, generator=gen)
+                m.running_mean.normal_(0, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return model
+
+
+def test_rangenet_on_the_card_matches_the_cpu():
+    """Full width (2 x 5 x 64 x 1024) in float32: features and logits
+    within 1e-5 of their scale. TF32 is switched on around the call: the
+    forward turns it off for itself and gives the setting back. The same
+    layers run with TF32 on land above the bound, so a forward that leaked
+    TF32 would fail."""
+    model = _rangenet()
+    x = torch.randn(2, 5, 64, 1024, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want_f, want_l = model(x)
+        card = model.cuda()
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got_f, got_l = card(x.cuda())
+            assert torch.backends.cudnn.allow_tf32
+            assert torch.backends.cuda.matmul.allow_tf32
+            leaked = card.decoder(*card.backbone(x.cuda()))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+    for got, want in ((got_f, want_f), (got_l, want_l)):
+        scale = want.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= 1e-5 * scale
+    scale = want_f.abs().max().item()
+    assert (leaked.cpu() - want_f).abs().max().item() > 1e-5 * scale
+
+
+def test_rangenet_features_on_the_card_do_not_depend_on_the_batch():
+    model = _rangenet().cuda()
+    model.train()                      # stays on the running statistics
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(8, 5, 64, 1024, device="cuda", generator=g)
+    with torch.inference_mode():
+        alone = model(x[5:6])[0]
+        batch = model(x)[0][5:6]
+    assert (alone - batch).abs().max().item() <= 1e-4 * alone.abs().max()
+
+
+def _clouds(seed, n=4000, count=6):
+    g = torch.Generator().manual_seed(seed)
+    azi = torch.rand(count, n, generator=g) * 6.2832 - 3.1416
+    r = torch.rand(count, n, generator=g) * 77.5 + 2.5
+    zen = torch.rand(count, n, generator=g) * 0.46 - 0.43
+    return torch.stack([r * torch.cos(zen) * torch.cos(azi),
+                        r * torch.cos(zen) * torch.sin(azi),
+                        r * torch.sin(zen)], dim=-1)
+
+
+def test_histograms_and_mmd_on_the_card():
+    """histogram_batch on the card equals it on the CPU bit for bit, and
+    the float32 MMD on the card holds the float64 host value at rtol
+    1e-4."""
+    from rangeldm_tpu_torch.metrics.histogram import (
+        histogram_batch, kitti_histogram,
+    )
+    from rangeldm_tpu_torch.metrics.mmd import compute_mmd
+    pc = _clouds(3)
+    mask = torch.rand(pc.shape[:2],
+                      generator=torch.Generator().manual_seed(4)) < 0.9
+    got = histogram_batch(pc.cuda(), mask.cuda())
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), histogram_batch(pc, mask))
+    a = [kitti_histogram(c.numpy()) for c in pc]
+    b = [kitti_histogram(c.numpy()) for c in _clouds(5)]
+    host = compute_mmd(a, b)
+    card = compute_mmd(a, b, device=True)
+    assert abs(card - host) <= 1e-4 * abs(host)
+
+
+def test_chamfer_on_the_card():
+    from rangeldm_tpu_torch.metrics.chamfer import chamfer_distance
+    a, b = _clouds(6, n=3000, count=2).double()
+    valid = torch.rand(3000, generator=torch.Generator().manual_seed(7)) < 0.8
+    d = torch.cdist(a, b) ** 2
+    want = (d[:, valid].min(1).values.mean()
+            + d[:, valid].min(0).values.mean())
+    got = chamfer_distance(a.float().cuda(), b.float().cuda(),
+                           b_valid=valid.cuda())
+    assert got.device.type == "cuda"
+    assert abs(got.item() - want.item()) <= 1e-4 * want.item()
+    none = torch.zeros(3000, dtype=torch.bool, device="cuda")
+    assert torch.isnan(chamfer_distance(a.cuda(), b.cuda(), b_valid=none))

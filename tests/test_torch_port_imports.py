@@ -50,7 +50,10 @@ def test_scan_sees_the_whole_package():
             "ldm_trainer.py", "train_state.py", "ema.py", "loggers.py",
             "config.py", "datasets.py", "projection.py", "sensors.py",
             "conditions.py", "sample_conditional.py", "mae.py",
-            "checkpoint.py", "latent_cache.py", "image_logger.py"} <= names
+            "checkpoint.py", "latent_cache.py", "image_logger.py",
+            "evaluate.py", "parity_gate.py", "laserscan.py", "histogram.py",
+            "mmd.py", "jsd.py", "frd.py", "rangenet.py", "knn.py",
+            "frd_pipeline.py", "chamfer.py", "precision.py"} <= names
 
 
 def _run(code_or_args):
@@ -94,3 +97,13 @@ def test_sampling_cli_starts_as_a_module():
     proc = _run(["-m", "rangeldm_tpu_torch.sample_ldm", "--help"])
     assert proc.returncode == 0, proc.stderr
     assert "--device" in proc.stdout and "--pipeline" in proc.stdout
+
+
+@pytest.mark.parametrize("module,flags", [
+    ("evaluate", ("--device", "--frd", "--rangenet", "--limit")),
+    ("parity_gate", ("--device", "--weights", "--skip_sampling",
+                     "--gate_frd"))])
+def test_scoring_clis_start_as_modules(module, flags):
+    proc = _run(["-m", f"rangeldm_tpu_torch.{module}", "--help"])
+    assert proc.returncode == 0, proc.stderr
+    assert all(flag in proc.stdout for flag in flags)
