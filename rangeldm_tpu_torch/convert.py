@@ -7,7 +7,11 @@
   params trees (numpy leaves) -> this package's state dicts, following the
   key grammar of rangeldm_tpu/convert/export.py;
   `rangenet_state_dicts_from_jax`: the JAX RangeNet's variables -> the
-  released RangeNet++ state dicts.
+  released RangeNet++ state dicts; `vae_gan_state_from_jax`: the JAX VAE
+  trainer's state -> the VAE's, the discriminator's and the EMA's state
+  dicts.
+* sgm VAE checkpoints (Lightning `.ckpt`, or `.safetensors` in the sgm
+  grammar): `load_sgm_vae`.
 * The released diffusers pipeline layout ({unet, unet_ema, vae,
   scheduler}/, ldm/train_unconditional.py:654-682): `load_diffusers_unet`,
   `load_diffusers_vae` (diffusers VAE keys -> sgm keys) and
@@ -20,8 +24,10 @@ Dense kernel is (I, O), the torch Linear weight (O, I).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import pickle
 import re
 import struct
 import sys
@@ -32,7 +38,7 @@ import torch
 
 from rangeldm_tpu_torch.metrics.rangenet import BLOCKS_53 as RANGENET_BLOCKS
 from rangeldm_tpu_torch.models.unet import UNetConfig
-from rangeldm_tpu_torch.models.vae import VaeConfig
+from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
 
 StateDict = Dict[str, torch.Tensor]
 # the run record a trainer writes into model_index.json
@@ -98,11 +104,25 @@ def write_safetensors(tensors: StateDict, path: str) -> None:
 
 
 def load_torch_state_dict(path: str) -> StateDict:
-    """A .safetensors file, or a torch pickle (.bin) read with
-    weights_only=True."""
+    """A .safetensors file, or a torch pickle (.bin, .ckpt, .pth) read with
+    weights_only=True. A Lightning checkpoint's {"state_dict": ...} wrapper
+    is unwrapped (rangeldm_tpu/convert/torch_common.py:51-53). A pickle
+    holding a global that weights_only refuses raises ValueError naming
+    the file and the global; it is never read with weights_only=False."""
     if str(path).endswith(".safetensors"):
         return read_safetensors(path)
-    return dict(torch.load(path, map_location="cpu", weights_only=True))
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        found = re.search(r"GLOBAL (\S+)", str(e))
+        raise ValueError(
+            f"{path}: torch.load(weights_only=True) refused "
+            f"{found.group(1) if found else 'a global'} (this package never "
+            f"unpickles arbitrary objects; save the state dict alone, or "
+            f"re-save the checkpoint as .safetensors)") from e
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return dict(obj)
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +147,7 @@ def _from_jax(params: Dict, rename) -> StateDict:
         if leaf_name == "kernel":
             w = (leaf.transpose(3, 2, 1, 0) if leaf.ndim == 4
                  else leaf.transpose(1, 0))
-            out[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(w))
+            out[prefix + "weight"] = torch.from_numpy(np.array(w, order="C"))
         elif leaf_name in ("scale", "bias"):
             suffix = "weight" if leaf_name == "scale" else "bias"
             out[prefix + suffix] = torch.from_numpy(leaf.copy())
@@ -156,6 +176,48 @@ def unet_state_dict_from_jax(params: Dict) -> StateDict:
 def vae_state_dict_from_jax(params: Dict) -> StateDict:
     """The JAX AutoencoderKL params tree -> this package's state dict."""
     return _from_jax(params, _vae_key)
+
+
+def _disc_key(key: str) -> str:
+    return re.sub(r"(main|mlp_coord)_(\d+)", r"\1.\2", key)
+
+
+def disc_state_dict_from_jax(params: Dict, batch_stats: Dict) -> StateDict:
+    """A JAX discriminator's params and batch_stats -> this package's
+    discriminator state dict (models/discriminator.py): main_{i} ->
+    main.{i}, mlp_coord_{j} -> mlp_coord.{j}, BatchNorm mean/var ->
+    running_mean/running_var."""
+    out = _from_jax(params, _disc_key)
+    for path, leaf in _flatten(batch_stats):
+        *mods, name = path
+        key = _disc_key(".".join(mods))
+        out[f"{key}.running_{name}"] = torch.from_numpy(leaf.copy())
+        out[f"{key}.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def _numpy_tree(t) -> Dict:
+    """A nested mapping (dict or FrozenDict) with array leaves -> nested
+    dicts of float32 numpy arrays."""
+    if hasattr(t, "items"):
+        return {k: _numpy_tree(v) for k, v in t.items()}
+    return np.asarray(t, np.float32)
+
+
+def vae_gan_state_from_jax(state) -> Dict:
+    """A JAX `VaeGanState` (rangeldm_tpu/training/vae_trainer.py:61-69,
+    numpy or array leaves) -> {"vae", "disc", "ema"} state dicts of this
+    package's AutoencoderKL and discriminator, and "logvar" (a 0-dim
+    tensor)."""
+    def tree(t):
+        return {} if t is None else _numpy_tree(t)
+
+    gen = tree(state.gen_params)
+    return {"vae": vae_state_dict_from_jax(gen["vae"]),
+            "logvar": torch.tensor(float(np.asarray(gen["logvar"]))),
+            "disc": disc_state_dict_from_jax(tree(state.disc_params),
+                                             tree(state.disc_batch_stats)),
+            "ema": vae_state_dict_from_jax(tree(state.ema_params))}
 
 
 def _rangenet_tensor(x) -> torch.Tensor:
@@ -224,6 +286,67 @@ def rangenet_state_dicts_from_jax(variables: Dict):
         conv(head, "1", ("head_conv",))
         head["1.bias"] = _rangenet_tensor(params["head_conv"]["bias"])
     return backbone, decoder, head
+
+
+# ---------------------------------------------------------------------------
+# sgm VAE checkpoints (rangeldm_tpu/convert/sgm_vae.py)
+# ---------------------------------------------------------------------------
+
+def sgm_vae_state_dict(sd: StateDict) -> StateDict:
+    """An sgm AutoencodingEngine state dict (a Lightning checkpoint's,
+    already unwrapped) -> this package's VAE state dict: the
+    `first_stage_model.` prefix of an LDM checkpoint stripped, the `loss.*`
+    subtree (discriminator, LPIPS, logvar), the `model_ema.*` shadow and
+    the quant convs (the RangeLDM VAEs have none, ldm/inference.py:90-92)
+    left out, as the JAX package's converter does (sgm_vae.py:53-55).
+    The key grammar is already this package's."""
+    out = {}
+    for key, val in sd.items():
+        key = re.sub(r"^first_stage_model\.", "", key)
+        if (key.startswith(("loss.", "model_ema.")) or "quant_conv" in key
+                or not key.startswith(("encoder.", "decoder."))):
+            continue
+        out[key] = val
+    return out
+
+
+def vae_config_from_state_dict(sd: StateDict,
+                               base: Optional[VaeConfig] = None) -> VaeConfig:
+    """The shape fields of a VaeConfig (in and out channels, ch, ch_mult,
+    num_res_blocks, z_channels, double_z, attention, quant convs) read off
+    an sgm-grammar state dict; the others (act, circular, coord, ...) come
+    from `base` (default: the shipped KITTI-360 VAE's)."""
+    base = base or VaeConfig()
+    conv_in = sd["encoder.conv_in.weight"]
+    ch = int(conv_in.shape[0])
+    n_levels = _n_levels(sd, r"encoder\.down\.(\d+)\.")
+    ch_mult = tuple(
+        int(sd[f"encoder.down.{i}.block.0.conv2.weight"].shape[0]) // ch
+        for i in range(n_levels))
+    n_blocks = _n_levels(sd, r"encoder\.down\.0\.block\.(\d+)\.")
+    z = int(sd["decoder.conv_in.weight"].shape[1]) - int(base.coord)
+    return dataclasses.replace(
+        base, in_channels=int(conv_in.shape[1]) - int(base.coord),
+        out_ch=int(sd["decoder.conv_out.weight"].shape[0]), ch=ch,
+        ch_mult=ch_mult, num_res_blocks=n_blocks, z_channels=z,
+        double_z=int(sd["encoder.conv_out.weight"].shape[0]) == 2 * z,
+        attn_type=("vanilla" if any(".mid.attn_1." in k for k in sd)
+                   else "none"),
+        use_quant_conv="quant_conv.weight" in sd)
+
+
+def load_sgm_vae(path: str, base: Optional[VaeConfig] = None):
+    """An sgm VAE checkpoint (a Lightning `.ckpt`, or a `.safetensors` in
+    the sgm grammar such as the VAE trainer's vae_sgm.safetensors) -> an
+    AutoencoderKL on the CPU, loaded strict, its shapes read off the
+    checkpoint and its other fields from `base`
+    (`vae_config_from_state_dict`)."""
+    sd = sgm_vae_state_dict(load_torch_state_dict(path))
+    if not sd:
+        raise ValueError(f"{path}: no encoder.* / decoder.* VAE keys")
+    vae = AutoencoderKL(vae_config_from_state_dict(sd, base))
+    vae.load_state_dict(sd, strict=True)
+    return vae
 
 
 # ---------------------------------------------------------------------------

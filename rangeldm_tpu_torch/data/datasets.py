@@ -252,6 +252,7 @@ class RangeLoader:
         self.num_threads = num_threads
         self.shard_by_process = shard_by_process
         self._epoch = 0
+        self._skip = 0
         self._warned_stall = False
         self.wait_fraction = 0.0          # updated live during iteration
         self.stall_report: Optional[dict] = None
@@ -267,6 +268,13 @@ class RangeLoader:
             rank, world = process_shard()
             order = order[rank::world][:len(order) // world]
         return order
+
+    def seek(self, batches: int) -> None:
+        """Continue as if `batches` batches had been read already: the
+        next iteration is that epoch's, from that batch on (a resumed
+        training run reads what an uninterrupted one would)."""
+        n = len(self)
+        self._epoch, self._skip = divmod(int(batches), n) if n else (0, 0)
 
     def __len__(self):
         n = len(self.dataset)
@@ -295,6 +303,7 @@ class RangeLoader:
     def __iter__(self):
         order = self._order()
         self._epoch += 1
+        first, self._skip = self._skip, 0
         nb = len(self)
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         pool = ThreadPoolExecutor(self.num_threads)
@@ -318,7 +327,7 @@ class RangeLoader:
             # an exception is forwarded to the consumer, which would
             # otherwise wait forever for the end marker
             try:
-                for b in range(nb):
+                for b in range(first, nb):
                     if stop.is_set():
                         return
                     idx = order[b * self.batch_size:(b + 1) * self.batch_size]

@@ -36,8 +36,7 @@ def load_rangenet(model_dir: str, device=None) -> RangeNet:
         for cand in (name, name + ".pth", name + ".pytorch"):
             p = os.path.join(model_dir, cand)
             if os.path.exists(p):
-                sd = load_torch_state_dict(p)
-                return sd.get("state_dict", sd)
+                return load_torch_state_dict(p)
         return None
 
     backbone = find("backbone")

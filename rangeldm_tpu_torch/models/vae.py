@@ -202,7 +202,8 @@ def gaussian_kl(moments: torch.Tensor) -> torch.Tensor:
 
 class AutoencoderKL(nn.Module):
     """Encoder + decoder (+ optional quant convs) of the sgm KL
-    autoencoder; the sampling path only decodes."""
+    autoencoder; the sampling path only decodes, VAE training runs
+    `forward` (training/vae_trainer.py)."""
 
     def __init__(self, cfg: VaeConfig):
         super().__init__()
@@ -225,3 +226,15 @@ class AutoencoderKL(nn.Module):
         if self.cfg.use_quant_conv:
             z = self.post_quant_conv(z)
         return self.decoder(z)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None,
+                sample_posterior: bool = True):
+        """(reconstruction, z, moments): encode, a posterior draw (`noise`,
+        else drawn from `generator`) or the posterior mode, decode (the
+        sgm engine's forward, vae/sgm/models/autoencoder.py:170-184)."""
+        moments = self.encode_moments(x)
+        z = (gaussian_sample(moments, generator, noise) if sample_posterior
+             else gaussian_mode(moments))
+        return self.decode(z), z, moments

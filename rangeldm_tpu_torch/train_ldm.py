@@ -33,8 +33,12 @@ every `sample_every_steps` and a deferred checkpoint on SIGUSR1, and writes
 the final pipeline with its run record (sensor and normalization), which
 `RangePipeline.from_pretrained` honours.
 
-Not ported yet: data-parallel training, reading orbax or sgm `.ckpt`
-checkpoints, and the TensorBoard and wandb sinks.
+`vae_checkpoint` is an sgm `.ckpt`, an sgm-grammar `.safetensors` (the
+VAE trainer's, train_vae.py) or a diffusers-layout VAE or pipeline
+directory.
+
+Not ported yet: data-parallel training, reading orbax checkpoints, and
+the TensorBoard and wandb sinks.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from typing import Mapping, Optional
 import torch
 
 from rangeldm_tpu_torch.convert import (
-    load_diffusers_vae, save_diffusers_pipeline,
+    load_diffusers_vae, load_sgm_vae, save_diffusers_pipeline,
 )
 from rangeldm_tpu_torch.data.datasets import (
     DatasetConfig, RangeImageDataset, RangeLoader,
@@ -109,15 +113,22 @@ def spec_from_cfg(cfg: Cfg) -> ModelSpec:
         pos_encoding=pos, cond_channels=cond)
 
 
-def load_vae(path: str) -> AutoencoderKL:
-    """A diffusers-layout VAE directory, or a pipeline directory holding
-    one under vae/."""
+def load_vae(path: str, cfg: Optional[VaeConfig] = None) -> AutoencoderKL:
+    """Every VAE artifact the first stage hands to the second
+    (rangeldm_tpu/train_ldm.py:50-73): an sgm `.ckpt` or an sgm-grammar
+    `.safetensors` (the VAE trainer's vae_sgm.safetensors), with the
+    shapes read off the file and the other fields of `cfg`; or a
+    diffusers-layout VAE directory, or a pipeline directory holding one
+    under vae/. Orbax directories are not read."""
+    if path.endswith((".ckpt", ".safetensors")):
+        return load_sgm_vae(path, cfg)
     vae_dir = path if os.path.exists(os.path.join(path, "config.json")) \
         else os.path.join(path, "vae")
     if not os.path.isdir(vae_dir):
-        raise ValueError(f"vae_checkpoint {path!r}: expected a diffusers-"
-                         f"layout VAE or pipeline directory (sgm .ckpt and "
-                         f"orbax directories are not read by this package)")
+        raise ValueError(f"vae_checkpoint {path!r}: expected an sgm .ckpt "
+                         f"or .safetensors file, or a diffusers-layout VAE "
+                         f"or pipeline directory (orbax directories are "
+                         f"not read by this package)")
     cfg, sd = load_diffusers_vae(vae_dir)
     vae = AutoencoderKL(cfg)
     vae.load_state_dict(sd, strict=True)
@@ -151,7 +162,7 @@ class LdmTrainer:
             with_vae = bool(cfg.get("with_vae", self.spec.vae is not None))
             vae = AutoencoderKL(self.spec.vae) if with_vae else None
         if vae is not None and cfg.get("vae_checkpoint"):
-            vae = load_vae(cfg.vae_checkpoint)
+            vae = load_vae(cfg.vae_checkpoint, self.spec.vae)
         self.unet = unet.to(self.device).train()
         self.vae = (vae.to(self.device).eval().requires_grad_(False)
                     if vae is not None else None)

@@ -37,6 +37,13 @@ def save_range_image_grid(images: np.ndarray, path: str,
     write_png_gray(path, _to_u8(np.concatenate(rows, axis=0)))
 
 
+def save_bev_png(bev_density: np.ndarray, path: str) -> None:
+    """(Gy, Gx) BEV density in [0, 1] -> a greyscale PNG
+    (ldm/inference.py:178-180)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_png_gray(path, _to_u8(np.asarray(bev_density, np.float32)))
+
+
 class ImageLogger:
     """Log image grids every `every` steps, and at the reference's
     log-scale early steps 1, 2, 4, ... up to `every`

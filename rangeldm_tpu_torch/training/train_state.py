@@ -100,6 +100,44 @@ def clip_by_global_norm_(tensors: List[torch.Tensor], max_norm: float,
     torch._foreach_mul_(tensors, factor)
 
 
+def adam_state_dict(optimizer: torch.optim.Optimizer, named_params,
+                    prefix: str) -> Dict[str, Any]:
+    """An Adam or AdamW optimizer's moments as CPU copies under
+    '{prefix}/exp_avg/{name}' and '{prefix}/exp_avg_sq/{name}', and its
+    update count under '{prefix}_count' (0 before the first update)."""
+    names = {id(p): n for n, p in named_params}
+    out: Dict[str, Any] = {}
+    counts = set()
+    for p, st in optimizer.state.items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            out[f"{prefix}/{key}/{names[id(p)]}"] = st[key].detach().to(
+                "cpu", copy=True)
+        counts.add(int(st["step"]))
+    if len(counts) > 1:
+        raise ValueError(f"the optimizer's parameters disagree on the "
+                         f"update count: {sorted(counts)}")
+    out[f"{prefix}_count"] = counts.pop() if counts else 0
+    return out
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer, named_params,
+                    sd: Dict[str, Any], prefix: str) -> None:
+    """Restore what `adam_state_dict` wrote, keeping the optimizer's
+    parameter groups and hyperparameters."""
+    opt = optimizer.state_dict()
+    index = {id(p): i for i, p in enumerate(
+        p for group in optimizer.param_groups for p in group["params"])}
+    state = {}
+    for name, p in named_params:
+        if f"{prefix}/exp_avg/{name}" in sd:
+            state[index[id(p)]] = {
+                "step": torch.tensor(float(sd[f"{prefix}_count"])),
+                "exp_avg": sd[f"{prefix}/exp_avg/{name}"],
+                "exp_avg_sq": sd[f"{prefix}/exp_avg_sq/{name}"]}
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": opt["param_groups"]})
+
+
 @dataclasses.dataclass
 class TrainState:
     """The step count (updates made so far), the model, its optimizer and
@@ -159,20 +197,12 @@ class TrainState:
 
         out: Dict[str, Any] = {f"model/{k}": copy(v) for k, v in
                                self.model.state_dict().items()}
-        names = {id(p): n for n, p in self.model.named_parameters()}
         if self.ema is not None:
             for (name, _), e in zip(self.model.named_parameters(), self.ema):
                 out[f"ema/{name}"] = copy(e)
-        counts = set()
-        for p, st in self.optimizer.state.items():
-            for key in ("exp_avg", "exp_avg_sq"):
-                out[f"adam/{key}/{names[id(p)]}"] = copy(st[key])
-            counts.add(int(st["step"]))
-        if len(counts) > 1:
-            raise ValueError(f"AdamW's parameters disagree on the update "
-                             f"count: {sorted(counts)}")
+        out.update(adam_state_dict(self.optimizer,
+                                   self.model.named_parameters(), "adam"))
         out["step"] = int(self.step)
-        out["adam_count"] = counts.pop() if counts else 0
         if self.generator is not None:
             out["generator"] = bytes(
                 self.generator.get_state().numpy()).hex()
@@ -190,19 +220,7 @@ class TrainState:
             with torch.no_grad():
                 for (name, _), e in zip(named, self.ema):
                     e.copy_(sd[f"ema/{name}"])
-        opt = self.optimizer.state_dict()
-        index = {id(p): i for i, p in enumerate(
-            p for group in self.optimizer.param_groups
-            for p in group["params"])}
-        state = {}
-        for name, p in named:
-            if f"adam/exp_avg/{name}" in sd:
-                state[index[id(p)]] = {
-                    "step": torch.tensor(float(sd["adam_count"])),
-                    "exp_avg": sd[f"adam/exp_avg/{name}"],
-                    "exp_avg_sq": sd[f"adam/exp_avg_sq/{name}"]}
-        self.optimizer.load_state_dict({"state": state,
-                                        "param_groups": opt["param_groups"]})
+        load_adam_state(self.optimizer, named, sd, "adam")
         self.step = int(sd["step"])
         if self.generator is not None:
             if "generator" not in sd:

@@ -25,6 +25,7 @@ naming the file and the line. `.get(key, default)` mirrors the reference's
 from __future__ import annotations
 
 import copy
+import importlib
 import os
 import re
 from typing import Any, List, Mapping, Optional, Tuple
@@ -316,3 +317,25 @@ def expand_env(obj: Any) -> Any:
         return re.sub(r"\$\{(\w+)\}",
                       lambda m: os.environ.get(m.group(1), ""), obj)
     return obj
+
+
+JAX_PACKAGE = "rangeldm_tpu"
+PORT_PACKAGE = "rangeldm_tpu_torch"
+
+
+def instantiate(spec: Mapping, **extra_kwargs) -> Any:
+    """`{'target': 'pkg.mod.Cls', 'params': {...}}` -> `Cls(**params,
+    **extra_kwargs)` (the vae/sgm/util.py:168-185 convention, as the JAX
+    package's rangeldm_tpu/utils/config.py:61-69 keeps it). A target in the
+    JAX package names this package's counterpart at the same module path
+    (`rangeldm_tpu.models.discriminator.NLayerDiscriminator` ->
+    `rangeldm_tpu_torch.models.discriminator.NLayerDiscriminator`); the
+    JAX package itself is never imported."""
+    target = spec["target"]
+    if target.split(".")[0] == JAX_PACKAGE:
+        target = PORT_PACKAGE + target[len(JAX_PACKAGE):]
+    module, name = target.rsplit(".", 1)
+    fn = getattr(importlib.import_module(module), name)
+    kwargs = dict(spec.get("params", {}) or {})
+    kwargs.update(extra_kwargs)
+    return fn(**kwargs)

@@ -36,6 +36,7 @@ GROUPS = [
     ("attention_fwd", r"attention_fwd"),
     ("optimizer_ema", r"multi_tensor|foreach|adam"),
     ("group_norm", r"group_norm|GroupNorm|welford"),
+    ("batch_norm", r"batch_norm|bn_fw|bn_bw"),
     ("convolution", r"conv|cudnn|implicit|dgrad|wgrad|fprop|xmma"),
     ("matmul", r"gemm|cutlass|cublas|sm90_"),
     ("elementwise", r"elementwise|vectorized|unrolled"),
@@ -62,6 +63,37 @@ def busy_ms(intervals) -> float:
             total += e - end
             end = e
     return total / 1e3
+
+
+def device_time(prof, steps: int, wall_ms: float) -> dict:
+    """A profile of `steps` steps -> device busy ms per step (the union of
+    the kernels' intervals), the idle share against `wall_ms` (the
+    unprofiled wall time of a step: the profiler slows the host, not the
+    kernels), kernels per step, and device ms per step by kernel group and
+    by kernel name."""
+    # device events, without the annotations that span them (such as the
+    # optimizer's step range)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    by_name, by_group = defaultdict(float), defaultdict(float)
+    counts = defaultdict(int)
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
+        by_name[e.name] += ms
+        by_group[group_of(e.name)] += ms
+        counts[e.name] += 1
+    busy = busy_ms([(e.time_range.start, e.time_range.end)
+                    for e in kernels]) / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
+    return {
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": (1 - busy / wall_ms) if kernels else None,
+        "kernels_per_step": len(kernels) / steps,
+        "device_ms_per_step_by_group": dict(
+            sorted(by_group.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [{"name": n[:120], "ms_per_step": ms,
+                         "launches_per_step": counts[n] / steps}
+                        for n, ms in top]}
 
 
 def main(argv=None) -> dict:
@@ -101,33 +133,10 @@ def main(argv=None) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall_profiled = steps(WARMUP + 2 * STEPS)
-    # device events, without the annotations that span them (such as the
-    # optimizer's step range)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    by_name, by_group = defaultdict(float), defaultdict(float)
-    counts = defaultdict(int)
-    for e in kernels:
-        ms = (e.time_range.end - e.time_range.start) / 1e3 / STEPS
-        by_name[e.name] += ms
-        by_group[group_of(e.name)] += ms
-        counts[e.name] += 1
-    busy = busy_ms([(e.time_range.start, e.time_range.end)
-                    for e in kernels]) / STEPS
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
-    result = {
-        "card": smi, "model": args.model, "batch": args.batch,
-        "steps": STEPS,
-        "dtype": "bfloat16", "wall_ms_per_step": wall,
-        "wall_ms_per_step_profiled": wall_profiled,
-        "device_busy_ms_per_step": busy,
-        "device_idle_share": (1 - busy / wall) if kernels else None,
-        "kernels_per_step": len(kernels) / STEPS,
-        "device_ms_per_step_by_group": dict(
-            sorted(by_group.items(), key=lambda kv: -kv[1])),
-        "top_kernels": [{"name": n[:120], "ms_per_step": ms,
-                         "launches_per_step": counts[n] / STEPS}
-                        for n, ms in top]}
+    result = {"card": smi, "model": args.model, "batch": args.batch,
+              "steps": STEPS, "dtype": "bfloat16", "wall_ms_per_step": wall,
+              "wall_ms_per_step_profiled": wall_profiled,
+              **device_time(prof, STEPS, wall)}
     print(json.dumps(result))
     return result
 

@@ -440,3 +440,53 @@ def test_chamfer_on_the_card():
     assert abs(got.item() - want.item()) <= 1e-4 * want.item()
     none = torch.zeros(3000, dtype=torch.bool, device="cuda")
     assert torch.isnan(chamfer_distance(a.cuda(), b.cuda(), b_valid=none))
+
+
+# -- VAE-GAN training (training/vae_trainer.py): no kernel of its own; the
+# steps on the card against the same steps on the CPU, f32, TF32 off ------
+
+def _vae_gan_state(device, cfg):
+    from rangeldm_tpu_torch.models.discriminator import (
+        NLayerDiscriminatorMetaKernel,
+    )
+    from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
+    from rangeldm_tpu_torch.training.vae_trainer import VaeGanState
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        vae = AutoencoderKL(VaeConfig(ch=32, ch_mult=(1, 2),
+                                      num_res_blocks=1))
+        disc = NLayerDiscriminatorMetaKernel(2, ndf=8, n_layers=2)
+    return VaeGanState.create(vae.to(device), disc.to(device), 1e-3, cfg)
+
+
+@pytest.mark.parametrize("disc_start", [0, 10 ** 9])
+def test_vae_gan_steps_on_the_card_match_the_cpu(disc_start):
+    """One generator and one discriminator step at the parity tests' size
+    (ch 32, 64x16 images, batch 2, MetaKernel ndf 8) on the card against
+    the CPU (chip_smoke.vae_gan_card_vs_cpu): every metric within 1e-4 of
+    its size, with the adaptive weight below its clip; after each step the
+    updated VAE, logvar and EMA, then the discriminator, within what one
+    Adam step explains, and the running statistics within 1e-5."""
+    from chip_smoke import VAE_CARD_TOL, vae_gan_card_vs_cpu
+    out = vae_gan_card_vs_cpu("cuda", disc_start)
+    assert out["rel"] <= VAE_CARD_TOL, out
+    assert not out["problems"], out["problems"][:5]
+    assert 0 < out["d_weight"] < out["d_weight_clip"], out
+
+
+def test_vae_gan_steps_in_bf16_on_the_card():
+    """mixed_precision bf16: autocast over the VAE's and discriminator's
+    forwards only; the metrics stay f32 and finite, the parameters f32."""
+    from rangeldm_tpu_torch.training.vae_trainer import (
+        VaeLossConfig, make_vae_gan_steps,
+    )
+    cfg = VaeLossConfig(disc_start=0)
+    state = _vae_gan_state("cuda", cfg)
+    gen, disc = make_vae_gan_steps(cfg, compute_dtype=torch.bfloat16)
+    x = torch.rand(2, 2, 64, 16, device="cuda")
+    gen_g = torch.Generator(device="cuda").manual_seed(0)
+    m = gen(state, x, generator=gen_g)
+    m.update(disc(state, x, generator=gen_g))
+    assert all(v.dtype == torch.float32 and torch.isfinite(v).all()
+               for v in m.values())
+    assert all(p.dtype == torch.float32 for p in state.vae.parameters())

@@ -53,7 +53,9 @@ def test_scan_sees_the_whole_package():
             "checkpoint.py", "latent_cache.py", "image_logger.py",
             "evaluate.py", "parity_gate.py", "laserscan.py", "histogram.py",
             "mmd.py", "jsd.py", "frd.py", "rangenet.py", "knn.py",
-            "frd_pipeline.py", "chamfer.py", "precision.py"} <= names
+            "frd_pipeline.py", "chamfer.py", "precision.py",
+            "discriminator.py", "lpips.py", "vae_trainer.py", "train_vae.py",
+            "eval_vae.py"} <= names
 
 
 def _run(code_or_args):
@@ -76,7 +78,7 @@ def test_importing_every_module_loads_no_jax():
         "print(len(mods))\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 36
+    assert int(proc.stdout.split()[-1]) >= 41
 
 
 def test_conditional_sampling_cli_starts_as_a_module():
@@ -107,3 +109,29 @@ def test_scoring_clis_start_as_modules(module, flags):
     proc = _run(["-m", f"rangeldm_tpu_torch.{module}", "--help"])
     assert proc.returncode == 0, proc.stderr
     assert all(flag in proc.stdout for flag in flags)
+
+
+@pytest.mark.parametrize("module,flags", [
+    ("train_vae", ("--cfg", "--max_steps", "--device")),
+    ("eval_vae", ("--vae", "--data", "--count", "--device"))])
+def test_vae_clis_start_as_modules(module, flags):
+    proc = _run(["-m", f"rangeldm_tpu_torch.{module}", "--help"])
+    assert proc.returncode == 0, proc.stderr
+    assert all(flag in proc.stdout for flag in flags)
+
+
+def test_instantiate_maps_jax_targets_without_importing_jax():
+    """A config's `target:` in the JAX package builds the port's
+    counterpart, and neither JAX nor the JAX package gets imported."""
+    code = (
+        "import sys\n"
+        "from rangeldm_tpu_torch.utils.config import instantiate\n"
+        "m = instantiate({'target': 'rangeldm_tpu.models.discriminator."
+        "NLayerDiscriminatorMetaKernel', 'params': {'ndf': 8}})\n"
+        "assert type(m).__module__ == 'rangeldm_tpu_torch.models."
+        "discriminator', type(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
