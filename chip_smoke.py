@@ -52,6 +52,20 @@ Phases, each printing one JSON line:
                  eval_vae on the held-out scans, 4 steps in bf16, a profile
                  of a step, and small steps on the card against the CPU; no
                  attention kernel on this path
+  9c. ddp      - data parallelism over torch.distributed, in worker
+                 processes of this script (`chip_smoke.py worker ...`):
+                 (a) the flagship step (TRAIN_CFG, bf16) on two ranks
+                 sharing the card over gloo, 16 a rank, 3 steps, against
+                 one process on the global batch of 32 (gradients, losses,
+                 the state after step 2 within one Adam step's bound, the
+                 ranks bit-equal, launches, steps/s); (b) `train_ldm.main`
+                 under torchrun, a world of one over NCCL, on the flagship
+                 YAML over the synthetic root; (c) the small VAE-GAN steps
+                 on two ranks against one process (d_weight, BatchNorm
+                 statistics of the global batch, parameters); (d)
+                 `sample_ldm.main` on two ranks and in one process, equal
+                 files; (e) the C++ projection core against numpy on
+                 120,000-point scans, alone and from 8 threads
   10. eval     - sample, score and gate: `parity_gate.main` on a seeded
                  full-width flagship pipeline (DDIM-50, 32 samples at batch
                  32, bf16) and a seeded darknet53 checkpoint in the released
@@ -142,6 +156,18 @@ RANGENET_TOL = 1e-5            # card against CPU, of the features' scale:
                                # a forward with TF32 on lies above it
 CHAMFER_TOL = 1e-3             # float32 on the card against float64
 DEVICE = "cuda"                # of the eval and t64 phases
+DDP_RANKS = 2                  # ranks sharing cuda:0 over gloo (NCCL refuses
+                               # two ranks on one card)
+DDP_STEPS = 3                  # (a): flagship steps at 16 a rank, global 32
+DDP_GRAD_TOL = 2e-2            # (a), bf16: two ranks' gradients, moments and
+                               # losses against one process's, of the largest
+                               # entry (autocast rounds each rank's weight
+                               # gradients to bf16 apart: about 4e-3)
+DDP_CLI_STEPS = 8              # (b): the training CLI, a world of one, NCCL
+DDP_SAMPLES = 8                # (d): the sampling CLI, 2 ranks against one
+DDP_SAMPLE_BATCH = 2           # process: samples, batch and DDIM steps
+DDP_SAMPLE_STEPS = 5
+RANK_TIMEOUT = 300             # seconds a worker process may take
 # rangeldm_tpu/configs/rangeldm_kitti360.yaml, the shipped flagship training
 # config, with the warm-up cut to 2 steps so that 10 steps move the weights;
 # output_dir is a temporary directory set at run time
@@ -353,15 +379,18 @@ def _close(kernel, got, want, dtype) -> tuple:
 
 def phase_kernels(attention, clock_hz: float):
     """Each kernel at the flagship shapes of the parity gate's UNet stage
-    report (batch 1), sampling (batch 4), the conditional CLI (batch 8)
-    and training and the gate's sampling (batch 32), plus a ragged T,
+    report (batch 1), a rank of the `ddp` phase's sampling (batch 2),
+    sampling (batch 4), the conditional CLI (batch 8), a rank of its
+    training (batch 16), and training and the gate's sampling (batch 32),
+    plus a ragged T,
     against its plain version; times of the
     kernel, the plain version and one PyTorch call (SDPA forward, or the
     autograd backward of SDPA) on the same inputs."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [(kernel, "rangeldm_kitti360", batch, shape, layers)
              for kernel in ("attention_fwd", "attention_bwd")
-             for batch in (GATE_STAGE_BATCH, BATCH, CLI_BATCH, TRAIN_BATCH)
+             for batch in (GATE_STAGE_BATCH, DDP_SAMPLE_BATCH, BATCH,
+                           CLI_BATCH, TRAIN_BATCH // DDP_RANKS, TRAIN_BATCH)
              for shape, layers in _shapes(batch)]
     cases += [(kernel, "rangedm_kitti360", RANGEDM_BATCH, shape, layers)
               for kernel in ("attention_fwd", "attention_bwd")
@@ -918,10 +947,13 @@ def state_equal(a: dict, b: dict) -> list:
 
 def adam_update_mismatches(got: dict, want: dict, prefixes: tuple,
                            lr: float, param_tol: float = VAE_PARAM_TOL,
-                           moment_tol: float = VAE_MOMENT_TOL) -> list:
+                           moment_tol: float = VAE_MOMENT_TOL,
+                           optimizer: str = None,
+                           betas: tuple = (0.9, 0.999)) -> list:
     """What differs, beyond what one Adam update explains, between two
-    flat `VaeGanState.state_dict()`s updated from one state (the running
-    statistics aside). The bias-corrected first and second moments of each
+    flat `VaeGanState.state_dict()`s (or, with `optimizer="adam"` and
+    AdamW's `betas`, two `TrainState.state_dict()`s) updated from one
+    state (the running statistics aside). The bias-corrected first and second moments of each
     parameter under `prefixes` lie within `moment_tol` of their tensor's
     largest entry plus the optimizer's largest (a bias whose exact
     gradient is 0, ahead of a one-channel GroupNorm group or a BatchNorm,
@@ -932,11 +964,12 @@ def adam_update_mismatches(got: dict, want: dict, prefixes: tuple,
     either way where a gradient is noise around 0. The EMA ('ema/'),
     (1 - decay) times the move, is held to its parameter's bound."""
     def moments(sd, name):
-        opt = "adam_disc" if name.startswith("disc/") else "adam_gen"
+        opt = optimizer or ("adam_disc" if name.startswith("disc/")
+                            else "adam_gen")
         key, t = name.split("/", 1)[-1], sd[f"{opt}_count"]
         m = np.asarray(sd[f"{opt}/exp_avg/{key}"], np.float64)
         v = np.asarray(sd[f"{opt}/exp_avg_sq/{key}"], np.float64)
-        return m / (1 - 0.9 ** t), np.sqrt(v / (1 - 0.999 ** t))
+        return m / (1 - betas[0] ** t), np.sqrt(v / (1 - betas[1] ** t))
 
     names = [n for n in want if n.startswith(prefixes)
              and "running" not in n and "num_batches" not in n]
@@ -1848,6 +1881,504 @@ def phase_t64(models, smi):
          ddim50_mean_abs=(img_k - img_r).abs().mean().item())
 
 
+# -- phase ddp: data parallelism over torch.distributed --------------------
+
+def tensors_digest(sd: dict) -> str:
+    """sha256 of a flat state dict's names, scalars and tensor bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        v = sd[k]
+        h.update(k.encode())
+        if torch.is_tensor(v):
+            v = v.detach().cpu().contiguous()
+            h.update(str(v.dtype).encode()
+                     + v.reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(v).encode())
+    return h.hexdigest()
+
+
+def ddp_snapshot(state) -> dict:
+    """What the next update reads, as GPU clones (no host synchronisation)
+    under TrainState.state_dict()'s names: parameters, EMA, AdamW's
+    moments and update count."""
+    out = {"adam_count": int(state.step)}
+    moments = state.optimizer.state
+    for (n, p), e in zip(state.model.named_parameters(), state.ema):
+        out[f"model/{n}"] = p.detach().clone()
+        out[f"ema/{n}"] = e.clone()
+        out[f"adam/exp_avg/{n}"] = moments[p]["exp_avg"].clone()
+        out[f"adam/exp_avg_sq/{n}"] = moments[p]["exp_avg_sq"].clone()
+    return out
+
+
+def ddp_batches(batch: int, h: int, w: int, device) -> list:
+    """The global batches of phase ddp (a), made on the device from
+    SEED + 1, equal in every process."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    return [torch.randn((batch, h, w, 2), generator=gen, device=device)
+            for _ in range(DDP_STEPS)]
+
+
+def ddp_fit(trainer, batches) -> dict:
+    """`trainer.fit` over `batches` (log every step), keeping on the card
+    the gradients of steps 1 and 2 before the clip (averaged over the
+    ranks) and, where a third step runs, the state after step 2."""
+    state = trainer.state
+    out = {"grads": [], "snapshot": None}
+    apply = state.apply_gradients
+
+    def capture():
+        if state.step < 2:
+            out["grads"].append({n: p.grad.clone() for n, p in
+                                 state.model.named_parameters()
+                                 if p.grad is not None})
+        elif state.step == 2:
+            out["snapshot"] = ddp_snapshot(state)
+        return apply()
+
+    state.apply_gradients = capture
+    trainer.fit(iter(batches), max_steps=len(batches), log_every=1)
+    state.apply_gradients = apply
+    return out
+
+
+def to_cpu(tree):
+    if torch.is_tensor(tree):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree
+
+
+def ddp_vae_setup(device) -> tuple:
+    """(state, (gen_step, disc_step), global batch) of phase ddp (c): a VAE
+    of ch 32, ch_mult (1, 2), the 2-layer MetaKernel discriminator of ndf 8
+    (two BatchNorms), 64x16 images, global batch 4, past disc_start, f32;
+    the channel weights keep d_weight below its clip."""
+    from rangeldm_tpu_torch.models.discriminator import (
+        NLayerDiscriminatorMetaKernel,
+    )
+    from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
+    from rangeldm_tpu_torch.training import vae_trainer
+    cfg = vae_trainer.VaeLossConfig(disc_start=0, range_weight=1.0,
+                                    intensity_weight=0.25)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        vae = AutoencoderKL(VaeConfig(ch=32, ch_mult=(1, 2),
+                                      num_res_blocks=1))
+        disc = NLayerDiscriminatorMetaKernel(2, ndf=8, n_layers=2)
+    state = vae_trainer.VaeGanState.create(vae.to(device), disc.to(device),
+                                           1e-3, cfg)
+    g = torch.Generator().manual_seed(SEED + 3)
+    x = torch.rand(4, 2, 64, 16, generator=g) * 0.8 + 0.1
+    return state, vae_trainer.make_vae_gan_steps(cfg), x.to(device)
+
+
+def ddp_vae_steps(device, rows=slice(None), ref_state: str = None) -> dict:
+    """The generator step, then the discriminator step (from `ref_state`,
+    the single process's state after its generator step, when given) on
+    `rows` of the global batch; metrics and states on the CPU."""
+    from rangeldm_tpu_torch.train_vae import DISC, GEN, step_generator
+    state, (gen_step, disc_step), x = ddp_vae_setup(device)
+    x = x[rows]
+    out = {"gen": gen_step(state, x, generator=step_generator(
+        SEED, 0, GEN, device))}
+    out["after_gen"] = state.state_dict()
+    if ref_state is not None:
+        state.load_state_dict(torch.load(ref_state, weights_only=True))
+    out["disc"] = disc_step(state, x, generator=step_generator(
+        SEED, 1, DISC, device))
+    out["after_disc"] = state.state_dict()
+    return to_cpu(out)
+
+
+def worker(argv) -> int:
+    """A process of phase ddp, started with torchrun's environment.
+    `ranks <device> <dir> <cfg.json> <vae ref state> <pipeline> <out>`: a
+    rank of two sharing the device over gloo, which runs (a) DDP_STEPS
+    flagship steps, (d) `sample_ldm.main` into <out> and (c) the small
+    VAE-GAN steps. `cli <device> <dir> <module> <args>...`: a command
+    line's `main`, under torchrun for (b). Each writes its results and its
+    kernel launches to <dir>/rank{r}.pt."""
+    import importlib
+    import torch.distributed as dist
+    from rangeldm_tpu_torch.ops import kernels
+    from rangeldm_tpu_torch.parallel.mesh import (
+        distributed, init_distributed, process_shard,
+    )
+    kind, device, out_dir = argv[0], torch.device(argv[1]), argv[2]
+
+    def launches():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        out = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        return out
+
+    result = {}
+    if kind == "ranks":
+        from rangeldm_tpu_torch import sample_ldm
+        from rangeldm_tpu_torch.train_ldm import LdmTrainer
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rank, world = init_distributed(device, backend="gloo")
+        with open(argv[3]) as f:
+            cfg = json.load(f)
+        b = cfg["train_batch_size"] // world
+        trainer = LdmTrainer(dict(cfg, train_batch_size=b,
+                                  output_dir=os.path.join(out_dir, "run")),
+                             device=device)
+        h, w = trainer.spec.image_size
+        batches = [x[rank * b:(rank + 1) * b] for x in ddp_batches(
+            cfg["train_batch_size"], h, w, device)]
+        kernels.reset_launches()
+        fit = ddp_fit(trainer, batches)
+        result["a_launches"] = launches()
+        result["final"] = tensors_digest(trainer.state.state_dict())
+        result["steps_1_2"] = tensors_digest(
+            {f"{i}/{n}": g for i, gs in enumerate(fit["grads"])
+             for n, g in gs.items()} | fit["snapshot"])
+        if rank == 0:
+            result.update(to_cpu(fit))
+        del trainer, fit
+        sample_ldm.main(ddp_sample_args(argv[5], device) + ["--out", argv[6]])
+        result["d_launches"] = launches()
+        b = 4 // world
+        result["c"] = ddp_vae_steps(device, slice(rank * b, (rank + 1) * b),
+                                    argv[4])
+    elif kind == "cli":
+        importlib.import_module(argv[3]).main(argv[4:])
+        result["launches"] = launches()
+    else:
+        raise ValueError(kind)
+    rank, world = process_shard()
+    result.update(rank=rank, world=world,
+                  backend=dist.get_backend() if distributed() else None)
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    if distributed():
+        dist.destroy_process_group()
+    return 0
+
+
+def ddp_sample_args(pipeline: str, device) -> list:
+    """sample_ldm's arguments in phase ddp (d)."""
+    return ["--pipeline", pipeline, "--samples", str(DDP_SAMPLES),
+            "--batch_size", str(DDP_SAMPLE_BATCH), "--steps",
+            str(DDP_SAMPLE_STEPS), "--device", str(device)]
+
+
+def start(args, env_extra=None) -> subprocess.Popen:
+    """`python3 <args>` with this script's environment, torchrun's
+    variables removed, then `env_extra`; output to a pipe."""
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env.update(env_extra or {})
+    return subprocess.Popen([sys.executable, *map(str, args)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def start_ranks(args, world: int = DDP_RANKS) -> list:
+    """`world` ranks of `python3 <args>` with torchrun's variables on a
+    free local port (explicit: nothing tells a process of a cluster)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    return [start(args, {"RANK": str(r), "LOCAL_RANK": str(r),
+                         "WORLD_SIZE": str(world), "MASTER_ADDR": "localhost",
+                         "MASTER_PORT": str(port)}) for r in range(world)]
+
+
+def finish(procs, what: str) -> list:
+    """Wait for every process (RANK_TIMEOUT each; the rest are killed on
+    failure); each must exit 0. Returns their output."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"{what}: process {i} exited "
+                                   f"{p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def grad_gap(got: dict, want: dict) -> float:
+    """The largest gradient difference over the largest gradient entry."""
+    scale = max(float(g.abs().max()) for g in want.values())
+    return max(float((got[n] - g).abs().max()) for n, g in want.items()) / \
+        scale
+
+
+def phase_ddp(kernels, data_root: str, smi, device: str = "cuda:0") -> dict:
+    """Data parallelism over torch.distributed and the projection core.
+    Two ranks share the card over gloo and run (a) the flagship step
+    (batch 16 each, global 32, bf16, DDP_STEPS steps) against one process
+    on the global batch from the same state: gradients of steps 1 and 2,
+    losses, the state after step 2 within what one Adam step explains, the
+    ranks bit-equal, launches and steps/s; (d) `sample_ldm.main` split over
+    them against one process: equal files; (c) the small VAE-GAN steps
+    against one process: d_weight, metrics, the global batch's BatchNorm
+    statistics, parameters. Then (b) `train_ldm.main` under torchrun, a
+    world of one over NCCL, on the flagship YAML over the synthetic root,
+    and (e) the C++ projection core against numpy on 120,000-point scans,
+    alone and from 8 threads. Returns the attention launches of the
+    distributed runs."""
+    from rangeldm_tpu_torch import sample_ldm
+    from rangeldm_tpu_torch.geometry.projection import range_image_np
+    from rangeldm_tpu_torch.geometry.sensors import get_spec
+    from rangeldm_tpu_torch.models.vae import gaussian_sample
+    from rangeldm_tpu_torch.native import range_image_native
+    from rangeldm_tpu_torch.train_ldm import LdmTrainer
+    from rangeldm_tpu_torch.train_vae import GEN, step_generator
+
+    script = os.path.abspath(__file__)
+    t_phase = time.perf_counter()
+    launches = {"attention_fwd": 0, "attention_bwd": 0}
+
+    def count(*dicts):
+        for d in dicts:
+            for k in launches:
+                launches[k] += d.get(k, 0)
+
+    def load(d, n):
+        return [torch.load(os.path.join(d, f"rank{r}.pt"),
+                           weights_only=True) for r in range(n)]
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the single process's runs: (a) two steps on the global batch,
+        # whose pipeline (d) samples; (c) the VAE-GAN steps
+        ref_dir, a_dir = os.path.join(tmp, "ref"), os.path.join(tmp, "a")
+        os.makedirs(a_dir)
+        cfg_path = os.path.join(tmp, "train_cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(TRAIN_CFG, f)
+        trainer = LdmTrainer(dict(TRAIN_CFG, output_dir=ref_dir),
+                             device=device)
+        h, w = trainer.spec.image_size
+        batch = TRAIN_CFG["train_batch_size"]
+        ref = to_cpu(ddp_fit(trainer, ddp_batches(batch, h, w,
+                                                  device)[:2]))
+        ref["snapshot"] = to_cpu(ddp_snapshot(trainer.state))
+        lr = trainer.state.schedule(1)
+        pipeline = trainer.save_final()
+        del trainer
+        vae_ref = ddp_vae_steps(device)
+        state, _, x = ddp_vae_setup(device)
+        with torch.no_grad():
+            moments = state.vae.encode_moments(x)
+            bsz, c, *rest = moments.shape
+            noise = torch.randn((bsz, c // 2, *rest), device=device,
+                                generator=step_generator(SEED, 0, GEN,
+                                                         device))
+            xrec = state.vae.decode(gaussian_sample(moments, noise=noise))
+        # no pixel within rounding of the L1 kink
+        kink = float((x - xrec).abs().min())
+        require(kink > 2e-5, f"ddp (c): a pixel {kink} from the L1 kink")
+        vae_state = os.path.join(tmp, "vae_ref.pt")
+        torch.save(vae_ref["after_gen"], vae_state)
+        one, two = os.path.join(tmp, "one"), os.path.join(tmp, "two")
+        sample_ldm.main(ddp_sample_args(pipeline, device) + ["--out", one])
+
+        t0 = time.perf_counter()
+        finish(start_ranks([script, "worker", "ranks", device, a_dir,
+                            cfg_path, vae_state, pipeline, two]),
+               "ddp (a), (c), (d)")
+        ranks_seconds = time.perf_counter() - t0
+        r0, r1 = load(a_dir, DDP_RANKS)
+
+        # (a)
+        require(r0["final"] == r1["final"]
+                and r0["steps_1_2"] == r1["steps_1_2"],
+                "ddp (a): the ranks' states or gradients differ")
+        require(r0["backend"] == "gloo" and r0["world"] == DDP_RANKS,
+                f"ddp (a): {r0['backend']}, world {r0['world']}")
+        for r in (r0, r1):
+            for k in launches:
+                require(r["a_launches"].get(k) == 16 * DDP_STEPS,
+                        f"ddp (a): rank {r['rank']} launched {k} "
+                        f"{r['a_launches'].get(k)} times, expected "
+                        f"{16 * DDP_STEPS}")
+        count(r0["a_launches"], r1["a_launches"])
+        log, ref_log = read_log(os.path.join(a_dir, "run")), read_log(ref_dir)
+        require([x["step"] for x in log] == list(range(1, DDP_STEPS + 1)),
+                f"ddp (a): rank 0's log {log}")
+        gaps = [grad_gap(g, wnt) for g, wnt in zip(r0["grads"],
+                                                  ref["grads"])]
+        loss_gaps = [abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                     for x, y in zip(log, ref_log)]
+        require(max(gaps) <= DDP_GRAD_TOL and max(loss_gaps) <= DDP_GRAD_TOL,
+                f"ddp (a): gradient gaps {gaps}, loss gaps {loss_gaps}")
+        bad = adam_update_mismatches(r0["snapshot"], ref["snapshot"],
+                                     ("model/", "ema/"), lr,
+                                     moment_tol=DDP_GRAD_TOL,
+                                     optimizer="adam", betas=(0.95, 0.999))
+        require(not bad, f"ddp (a): after step 2, {bad[:5]}")
+        ends = [x["step"] / x["sps"] for x in log]
+        out["a"] = dict(
+            ranks=DDP_RANKS, backend="gloo", device=device,
+            batch_per_rank=batch // DDP_RANKS, steps=DDP_STEPS,
+            steps_per_s=(DDP_STEPS - 1) / (ends[-1] - ends[0]),
+            grad_gap=gaps, grad_bound=DDP_GRAD_TOL, loss_gap=loss_gaps,
+            params_outside_adam_bound=len(bad), ranks_bit_equal=True,
+            launches_per_rank=r0["a_launches"],
+            losses=[x["loss"] for x in log],
+            ranks_seconds=ranks_seconds)
+
+        # (d)
+        n_batches = -(-DDP_SAMPLES // DDP_SAMPLE_BATCH)
+        for r in (r0, r1):
+            want = 16 * DDP_SAMPLE_STEPS * len(range(r["rank"], n_batches,
+                                                     DDP_RANKS))
+            require(r["d_launches"].get("attention_fwd") == want,
+                    f"ddp (d): rank {r['rank']} {r['d_launches']}")
+        count(r0["d_launches"], r1["d_launches"])
+        files = sorted(os.listdir(one))
+        require(files == sorted(os.listdir(two))
+                and len(files) == 3 * DDP_SAMPLES,
+                f"ddp (d): {files} against {sorted(os.listdir(two))}")
+        differ = [f for f in files if open(os.path.join(one, f), "rb").read()
+                  != open(os.path.join(two, f), "rb").read()]
+        require(not differ, f"ddp (d): files differ: {differ}")
+        out["d"] = dict(ranks=DDP_RANKS, samples=DDP_SAMPLES,
+                        batch=DDP_SAMPLE_BATCH, steps=DDP_SAMPLE_STEPS,
+                        files_equal=len(files))
+
+        # (c)
+        c0, c1 = r0["c"], r1["c"]
+        require(all(state_equal(c0[k], c1[k]) == []
+                    for k in ("after_gen", "after_disc"))
+                and all(torch.equal(v, c1[s][k]) for s in ("gen", "disc")
+                        for k, v in c0[s].items()),
+                "ddp (c): the ranks differ")
+        rel = max(abs(float(c0[s][k]) - float(v)) / max(abs(float(v)), 1e-3)
+                  for s in ("gen", "disc") for k, v in vae_ref[s].items())
+        d_weight = float(c0["gen"]["d_weight"])
+        problems = []
+        for key, prefixes in (("after_gen", ("vae/", "ema/", "logvar")),
+                              ("after_disc", ("disc/",))):
+            problems += adam_update_mismatches(c0[key], vae_ref[key],
+                                               prefixes, 1e-3)
+            stats = [k for k in vae_ref[key] if "running" in k]
+            require(len(stats) == 4, f"ddp (c): statistics {stats}")
+            problems += [f"{key} {k}" for k in stats if float(
+                (c0[key][k] - vae_ref[key][k]).abs().max()) > VAE_STATS_TOL]
+        require(rel <= VAE_CARD_TOL and not problems
+                and 0 < d_weight < 1e4 * 0.5,
+                f"ddp (c): metrics {rel}, d_weight {d_weight}, "
+                f"{problems[:5]}")
+        out["c"] = dict(ranks=DDP_RANKS, global_batch=4, metrics_rel=rel,
+                        d_weight=d_weight,
+                        d_weight_ref=float(vae_ref["gen"]["d_weight"]),
+                        kink_gap=kink, ranks_bit_equal=True)
+        del r0, r1, ref
+
+        # (b) the training CLI under torchrun: a world of one over NCCL
+        b_dir = os.path.join(tmp, "b")
+        os.makedirs(b_dir)
+        override = write_yaml(os.path.join(tmp, "b.yaml"), {
+            "output_dir": b_dir, "data": {"root": data_root},
+            "log_every": 1})
+        t0 = time.perf_counter()
+        finish([start([
+            "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1", script, "worker", "cli", device,
+            b_dir, "rangeldm_tpu_torch.train_ldm", "--cfg", FLAGSHIP_YAML,
+            override, "--max_steps", str(DDP_CLI_STEPS),
+            # on the card the rank's own device, cuda:{LOCAL_RANK}
+            *([] if "cuda" in device else ["--device", device])])],
+            "ddp (b)")
+        b_seconds = time.perf_counter() - t0
+        (rb,) = load(b_dir, 1)
+        require(rb["backend"] == ("nccl" if "cuda" in device else "gloo")
+                and rb["world"] == 1,
+                f"ddp (b): {rb['backend']}, world {rb['world']}")
+        for k in launches:
+            require(rb["launches"].get(k) == 16 * DDP_CLI_STEPS,
+                    f"ddp (b): {k} launched {rb['launches'].get(k)} times")
+        count(rb["launches"])
+        log = read_log(b_dir)
+        require([x["step"] for x in log] == list(range(1, DDP_CLI_STEPS + 1))
+                and all(np.isfinite(x["loss"]) for x in log),
+                f"ddp (b): log {log}")
+        require({"unet", "unet_ema", "vae"} <= set(os.listdir(
+            os.path.join(b_dir, "pipeline"))), "ddp (b): no pipeline")
+        ends = [x["step"] / x["sps"] for x in log]
+        out["b"] = dict(
+            world=1, backend=rb["backend"], launcher="torch.distributed.run",
+            batch=TRAIN_BATCH, steps=DDP_CLI_STEPS,
+            steps_per_s=(DDP_CLI_STEPS - 1) / (ends[-1] - ends[0]),
+            data_wait_frac=log[-1]["data_wait_frac"], seconds=b_seconds,
+            launches=rb["launches"])
+
+    # (e) the projection core against numpy, alone and in 8 loader threads
+    scans = [np.fromfile(f, np.float32).reshape(-1, 4) for f in sorted(
+        glob_scans(data_root))[:8]]
+    spec = get_spec("kitti360")
+    range_image_native(scans[0], spec)                       # build, warm
+    timed = {}
+    for name, fn in (("numpy", range_image_np), ("native",
+                                                  range_image_native)):
+        t0 = time.perf_counter()
+        res = [fn(pc, spec) for pc in scans]
+        timed[name] = ((time.perf_counter() - t0) / len(scans) * 1e3, res)
+    gap = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(
+        timed["native"][1], timed["numpy"][1]))
+    pixels = sum(int((np.abs(a[0] - b[0]).max(-1) > 1e-5).sum())
+                 for a, b in zip(timed["native"][1], timed["numpy"][1]))
+    threads = {}
+    for team in ("default", "one"):
+        threads[team] = threaded_projection_ms(scans, spec, team)
+    out["e"] = dict(scan_points=SCAN_POINTS, scans=len(scans),
+                    numpy_ms_per_scan=timed["numpy"][0],
+                    native_ms_per_scan=timed["native"][0],
+                    max_abs_gap=gap, pixels_above_1e5=pixels,
+                    loader_threads_ms_per_scan=threads,
+                    host_cpus=os.cpu_count())
+    emit("ddp", card=smi, seconds=time.perf_counter() - t_phase,
+         launches=launches, **out)
+    return launches
+
+
+def glob_scans(root: str) -> list:
+    import glob
+    return glob.glob(os.path.join(root, "data_3d_raw", "*_0003_sync",
+                                  "velodyne_points", "data", "*.bin"))
+
+
+def threaded_projection_ms(scans, spec, team: str) -> float:
+    """Wall ms per scan of the native core called from 8 threads at once,
+    as the loader's pool calls it, 4 passes over the scans: with OpenMP's
+    default team in every call, or one thread per call ("one", set in each
+    calling thread through libgomp's omp_set_num_threads)."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from rangeldm_tpu_torch.native import range_image_native
+    gomp = ctypes.CDLL("libgomp.so.1")
+
+    def call(pc):
+        if team == "one":
+            gomp.omp_set_num_threads(1)
+        return range_image_native(pc, spec)
+
+    work = scans * 4
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(call, scans))                          # warm
+        t0 = time.perf_counter()
+        list(pool.map(call, work))
+        return (time.perf_counter() - t0) / len(work) * 1e3
+
+
 def summary(rows, launches):
     """One entry per kernel, over the attention layers of one flagship UNet
     in bf16 at the batch of the path that carries it most: the forward at
@@ -1880,6 +2411,9 @@ def summary(rows, launches):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["worker"]:          # a process of phase ddp
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1911,15 +2445,18 @@ def main() -> int:
         require(not any(kernels.LAUNCHES.values()),
                 f"VAE-GAN training launched {kernels.LAUNCHES}: its path "
                 f"holds no attention")
+        ddp = phase_ddp(kernels, data_root, smi)
         launches["attention_fwd"] += phase_eval(kernels, models,
                                                 samples_root, smi)
     phase_t64(models, smi)
     launches["attention_fwd"] += (trained["attention_fwd"]
                                   + cond_trained["attention_fwd"]
                                   + cli["attention_fwd"])
+    launches["attention_fwd"] += ddp["attention_fwd"]
     launches["attention_bwd"] = (trained["attention_bwd"]
                                  + cond_trained["attention_bwd"]
-                                 + cli["attention_bwd"])
+                                 + cli["attention_bwd"]
+                                 + ddp["attention_bwd"])
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps(summary(rows, launches)))
     print(smi)

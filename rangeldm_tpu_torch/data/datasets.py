@@ -11,8 +11,10 @@ move them to the device.
 
 Projections are cached as .npz files beside the raw scans (data_3d_range
 directories) with the JAX package's paths and array names, so one root's
-caches serve both packages. The projection is the numpy host path
-(`geometry.projection.range_image_np`).
+caches serve both packages. A scan is projected by the C++ core
+(`native.range_image_native`, built with g++ at first use), as the JAX
+package's dataset does where its core is built; `geometry.projection.
+range_image_np` is its plain version.
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from rangeldm_tpu_torch.geometry.projection import range_image_np
 from rangeldm_tpu_torch.geometry.sensors import SensorSpec, get_spec
+from rangeldm_tpu_torch.native import range_image_native
+from rangeldm_tpu_torch.parallel.mesh import process_shard
 
 HELD_OUT_DRIVES = ("0000_sync", "0002_sync")    # the KITTI-360 test split
 
@@ -167,7 +170,8 @@ class RangeImageDataset:
                     except OSError:
                         pass
         else:
-            img, mask, cw = range_image_np(self._load_points(path), self.spec)
+            img, mask, cw = range_image_native(self._load_points(path),
+                                               self.spec)
             if self.cfg.cache:
                 Path(cache).parent.mkdir(parents=True, exist_ok=True)
                 # publish atomically: a run stopped mid-write must never
@@ -212,15 +216,6 @@ class RangeImageDataset:
 def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     """Stack a list of sample dicts (ldm/dataset.py:370-380)."""
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
-
-
-def process_shard() -> tuple:
-    """(rank, world size) of this process: torch.distributed's when it is
-    initialized, else (0, 1)."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 class LoaderStallWarning(UserWarning):

@@ -22,7 +22,12 @@ of its nn.Sequential, `main.{i}.mlp_coord.{0,2}`, `main.{i}.coov`), so the
 `BatchNorm` keeps flax's statistics: in train mode it normalizes with the
 batch's biased variance and moves the running variance towards that same
 biased variance (momentum 0.9 in flax's convention, 0.1 in torch's);
-torch's BatchNorm2d moves it towards the unbiased one.
+torch's BatchNorm2d moves it towards the unbiased one. The statistics are
+the global batch's, as flax's BatchNorm sees the global sharded array in
+the JAX package: the sums of x and x^2 and the count are summed over the
+ranks by a differentiable all-reduce, and the variance is E[x^2] - E[x]^2,
+flax's fast variance. (torch's SyncBatchNorm would move the running
+variance the unbiased way.)
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from rangeldm_tpu_torch.parallel.mesh import all_reduce_sum
 
 SLOPE = 0.2
 # the reference's default angular steps (model.py:174-180): azimuth
@@ -52,14 +59,22 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        # the global batch's mean and biased variance, from the sums of x,
+        # x^2 and the counts over the ranks (one rank: its own batch)
+        xf = x.float()
+        count = torch.full_like(xf[0, :, 0, 0], xf.numel() / xf.shape[1])
+        sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                           (xf * xf).sum(dim=(0, 2, 3)),
+                                           count]))
+        mean = sums[0] / sums[2]
+        var = torch.clamp(sums[1] / sums[2] - mean * mean, min=0.0)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean[:, None, None]) * scale[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:

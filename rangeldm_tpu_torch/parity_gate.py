@@ -124,13 +124,16 @@ def unet_stage_report(pipe) -> Dict[str, float]:
 
 
 def generate_samples(pipe, out_dir: str, spec, n_samples: int,
-                     batch_size: int, steps: int, seed: int) -> int:
+                     batch_size: int, steps: int, seed: int,
+                     mesh_devices: str = "auto") -> int:
     """DDIM samples written as {i}.bin clouds; batch b draws from
-    `sample_ldm.batch_generator(seed, b)`."""
+    `sample_ldm.batch_generator(seed, b)`, each batch split over the local
+    mesh `mesh_devices` names (`sample_ldm.resolve_sampling_mesh`)."""
     from rangeldm_tpu_torch.sample_ldm import (
-        batch_generator, build_sampler, save_outputs,
+        batch_generator, build_sampler, resolve_sampling_mesh, save_outputs,
     )
-    sample = build_sampler(pipe, batch_size, steps, "ddim")
+    mesh = resolve_sampling_mesh(mesh_devices, batch_size, pipe["device"])
+    sample = build_sampler(pipe, batch_size, steps, "ddim", mesh=mesh)
     written = 0
     for b in range(-(-n_samples // batch_size)):
         imgs = sample(batch_generator(pipe["device"], seed, b))
@@ -236,6 +239,10 @@ def _main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' "
                          "must be asked for)")
+    ap.add_argument("--mesh_devices", default="auto",
+                    help="local devices to split each sample batch over: "
+                         "'auto' (as many as divide the batch), an integer, "
+                         "or 1 for none")
     ap.add_argument("--fp32", action="store_true",
                     help="sample in float32 instead of bfloat16")
     ap.add_argument("--skip_sampling", action="store_true",
@@ -289,7 +296,8 @@ def _main(argv=None):
     # 3. sample
     if not args.skip_sampling:
         n = generate_samples(pipe, out_dir, spec, args.samples,
-                             args.batch_size, args.steps, args.seed)
+                             args.batch_size, args.steps, args.seed,
+                             args.mesh_devices)
         print(f"[gate] wrote {n} samples to {out_dir}", file=sys.stderr)
         report["n_sampled"] = n
 

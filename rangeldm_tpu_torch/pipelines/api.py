@@ -12,44 +12,72 @@ reference's diffusers pipelines (ldm/pipelines.py):
     filled = inp.inpaint(masked_images, masks)  # azimuth-sector inpainting
 
 Loads released diffusers-layout directories. Images go in and come out as
-float32 numpy arrays (B, H, W, C).
+float32 numpy arrays (B, H, W, C). `from_pretrained(..., mesh="auto")`
+splits every batch over this process's cards, one replica of the models on
+each, made once (the JAX package's `mesh`, pipelines/api.py:54-85).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from rangeldm_tpu_torch.geometry.inverse import to_point_cloud_masked
 from rangeldm_tpu_torch.geometry.sensors import SensorSpec, get_spec
+from rangeldm_tpu_torch.parallel.mesh import (
+    largest_divisible_prefix, local_devices,
+)
 # module references, not names: both import this package in turn
 from rangeldm_tpu_torch import sample_conditional, sample_ldm
 
 
 class RangePipeline:
     def __init__(self, pipe: dict, sensor: Optional[str] = None,
-                 spec: Optional[SensorSpec] = None):
+                 spec: Optional[SensorSpec] = None,
+                 mesh: Union[None, str, Sequence] = None):
         self._p = pipe
         self._spec = spec          # explicit SensorSpec override
         self.sensor = sensor or (pipe.get("meta") or {}).get(
             "sensor", "kitti360")
+        if isinstance(mesh, str) and mesh != "auto":
+            raise ValueError("mesh must be a tuple of devices, None, or "
+                             "'auto'")
+        self.mesh = mesh if mesh in (None, "auto") else tuple(mesh)
 
     @classmethod
     def from_pretrained(cls, path: str, sensor: Optional[str] = None,
                         dtype: torch.dtype = torch.bfloat16,
                         use_ema: bool = True,
                         spec: Optional[SensorSpec] = None,
-                        device=None) -> "RangePipeline":
+                        device=None,
+                        mesh: Union[None, str, Sequence] = None
+                        ) -> "RangePipeline":
         """Load a diffusers-layout pipeline directory. `device=None` is the
         CUDA device and raises without one; pass device="cpu" to run on
         the CPU. `sensor` defaults to kitti360; `spec` overrides the
-        sensor lookup with an explicit SensorSpec."""
+        sensor lookup with an explicit SensorSpec.
+
+        `mesh` splits every generation call's batch over devices, one
+        replica of the models on each: a tuple of devices starting at
+        `device` (batches must divide over it), or "auto", this process's
+        devices (`parallel.mesh.local_devices`), of which each call takes
+        the largest prefix that divides its batch."""
         pipe = sample_ldm.load_diffusers_pipeline(path, dtype=dtype,
                                                   device=device,
                                                   use_ema=use_ema)
-        return cls(pipe, sensor=sensor, spec=spec)
+        return cls(pipe, sensor=sensor, spec=spec, mesh=mesh)
+
+    def _mesh_for_batch(self, batch_size: int) -> Optional[tuple]:
+        """The devices a call with this batch runs on: an explicit mesh as
+        it is (a batch that does not divide over it raises), for "auto" the
+        largest prefix of this process's devices that divides the batch;
+        None for the pipeline's device alone."""
+        if self.mesh != "auto":
+            return self.mesh
+        local = local_devices(self.device)
+        return local[:largest_divisible_prefix(len(local), batch_size)]
 
     @property
     def device(self) -> torch.device:
@@ -108,9 +136,9 @@ class RangePipeline:
                              f"use .upsample() / .inpaint()")
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
-        sample = sample_ldm.build_sampler(self._p, batch_size,
-                                          num_inference_steps, method,
-                                          final_only=final_only)
+        sample = sample_ldm.build_sampler(
+            self._p, batch_size, num_inference_steps, method,
+            final_only=final_only, mesh=self._mesh_for_batch(batch_size))
         out = sample(generator)
         if final_only:
             return out.float().cpu().numpy()
@@ -124,7 +152,8 @@ class RangePipeline:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         batch = len(next(iter(cond_inputs.values())))
         sample = sample_conditional.build_conditional_sampler(
-            self._p, batch, mode, num_steps, factor, method=method)
+            self._p, batch, mode, num_steps, factor, method=method,
+            mesh=self._mesh_for_batch(batch))
         return sample(generator, cond_inputs).float().cpu().numpy()
 
     def upsample(self, sparse_images, num_inference_steps: int = 50,

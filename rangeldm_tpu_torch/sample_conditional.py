@@ -10,8 +10,11 @@ Writes the triplets the MAE metrics read (ldm/inference_conditional.py:
   {prefix}_result/{i}.npy   the generated range image (H, W, C)
   {prefix}_target/{i}.npy   the ground truth
   {prefix}_input/{i}.npy    the condition (sparse beams or masked image)
-with prefix `densification` (upsample) or `inpainting`. One process; runs
-on CUDA unless `--device cpu` is given.
+with prefix `densification` (upsample) or `inpainting`. Runs on CUDA
+unless `--device cpu` is given. As in sample_ldm, each batch splits over a
+local mesh (`--mesh_devices`) and the batches over the processes of a
+torchrun launch, each writing its batches' files under their global
+sample indices (rangeldm_tpu/sample_conditional.py:126-153).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from rangeldm_tpu_torch.data.datasets import (
     DatasetConfig, RangeImageDataset, RangeLoader,
 )
 from rangeldm_tpu_torch.models.layers import pixel_unshuffle_azimuth
+from rangeldm_tpu_torch.parallel.mesh import process_shard, split_batch
 from rangeldm_tpu_torch.pipelines.samplers import (
     conditional_latent_sample, to_bcwh,
 )
@@ -42,46 +46,58 @@ COND_KEYS = ("down", "masked_image", "inpainting_mask")
 
 def build_conditional_sampler(pipe, batch_size: int, mode: str,
                               num_steps: int = 50, factor: int = 4,
-                              method: str = "ddim"):
+                              method: str = "ddim", mesh=None):
     """A function `sample(generator, cond_inputs) -> (B, H, W, C)` images on
     the pipeline's device, in its dtype. `cond_inputs` holds 'down'
     (upsample) or 'masked_image' and 'inpainting_mask' (inpainting), each
     (B, H', W, C') in the loader's layout, as arrays or tensors. The
     generator draws the masked image's posterior noise, then x_T.
-    method: 'ddim' or 'dpmpp' (DPM-Solver++ 2M)."""
+    method: 'ddim' or 'dpmpp' (DPM-Solver++ 2M). `mesh` splits the batch
+    (the condition's encode, the denoise loop and the decode) over its
+    devices, with the same result (sample_ldm.build_sampler)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if pipe["vae"] is None:
         raise ValueError("conditional sampling needs a latent pipeline")
-    unet, cfg = pipe["unet"], pipe["unet_cfg"]
-    vae, sf = pipe["vae"], pipe["vae_cfg"].scaling_factor
-    dtype, device = pipe["dtype"], pipe["device"]
+    mesh = sample_ldm.sampling_mesh(pipe, batch_size, mesh)
+    unets, vaes = sample_ldm.replicas(pipe, mesh)
+    cfg, vcfg = pipe["unet_cfg"], pipe["vae_cfg"]
+    sf, dtype, device = vcfg.scaling_factor, pipe["dtype"], pipe["device"]
     h, w = cfg.sample_size
     shape = (batch_size, h, w, cfg.out_channels)
     # a conditional model trained with the pos channel needs it here too
     # (the shipped conditional configs have none)
     pos = sample_ldm.pipe_pos_encoding(pipe)
 
-    def tensor(v) -> torch.Tensor:
+    def chunks(v) -> list:
         v = torch.as_tensor(v)
         if v.shape[0] != batch_size:
             raise ValueError(f"condition batch {v.shape[0]} != sampler "
                              f"batch {batch_size}")
-        return to_bcwh(v.to(device=device, dtype=dtype))
+        return split_batch(to_bcwh(v.to(device=device, dtype=dtype)), mesh)
 
     @torch.inference_mode()
     def sample(generator: Optional[torch.Generator], cond_inputs: dict):
         if mode == "upsample":
-            cond = pixel_unshuffle_azimuth(tensor(cond_inputs["down"]),
-                                           factor)
+            cond = [pixel_unshuffle_azimuth(d, factor)
+                    for d in chunks(cond_inputs["down"])]
         else:
-            cond = encode_masked_image_cond(
-                vae, sf, tensor(cond_inputs["masked_image"]),
-                tensor(cond_inputs["inpainting_mask"]), generator)
+            # each chunk encoded on its device; the posterior noise drawn
+            # for the batch, as one encode of the batch would draw it
+            images = chunks(cond_inputs["masked_image"])
+            _, _, iw, ih = images[0].shape
+            f = vcfg.down_factor
+            noise = torch.randn((batch_size, vcfg.z_channels, iw // f,
+                                 ih // f), generator=generator, device=device)
+            cond = [encode_masked_image_cond(vae, sf, im, mk,
+                                             posterior_noise=nz)
+                    for vae, im, mk, nz in zip(
+                        vaes, images, chunks(cond_inputs["inpainting_mask"]),
+                        split_batch(noise, mesh))]
         return conditional_latent_sample(
-            unet, vae.decode, pipe["schedule"], shape, sf, cond, generator,
-            num_steps=num_steps, pos_encoding=pos, method=method,
-            dtype=dtype, device=device)
+            unets, [v.decode for v in vaes], pipe["schedule"], shape, sf,
+            cond, generator, num_steps=num_steps, pos_encoding=pos,
+            method=method, dtype=dtype, mesh=mesh)
 
     return sample
 
@@ -118,15 +134,22 @@ def main(argv=None) -> int:
     ap.add_argument("--factor", type=int, default=4)
     ap.add_argument("--mask_rate", type=float, default=0.0625)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA device; 'cpu' "
-                         "must be asked for)")
+                    help="torch device (default: the CUDA device, "
+                         "cuda:{LOCAL_RANK} under torchrun; 'cpu' must be "
+                         "asked for)")
+    ap.add_argument("--mesh_devices", default="auto",
+                    help="local devices to split each batch over: 'auto' "
+                         "(as many as divide the batch), an integer, or 1 "
+                         "for none")
     args = ap.parse_args(argv)
 
     device = sample_ldm.resolve_device(args.device)
     pipe = sample_ldm.load_diffusers_pipeline(args.pipeline, device=device)
+    mesh = sample_ldm.resolve_sampling_mesh(args.mesh_devices,
+                                            args.batch_size, device)
     sample = build_conditional_sampler(pipe, args.batch_size, args.mode,
                                        args.steps, args.factor,
-                                       method=args.method)
+                                       method=args.method, mesh=mesh)
     prefix = "densification" if args.mode == "upsample" else "inpainting"
     dirs = {sub: os.path.join(args.out, f"{prefix}_{sub}")
             for sub in ("result", "target", "input")}
@@ -139,24 +162,32 @@ def main(argv=None) -> int:
         train=False)
     loader = RangeLoader(ds, batch_size=args.batch_size, shuffle=True,
                          seed=0)
-    written = 0
+    # every process walks the same seed-0 order and samples its stride of
+    # the batches, under global sample indices
+    rank, world = process_shard()
+    written = covered = 0
     for bi, batch in enumerate(loader):
-        if written >= args.samples:
+        if covered >= args.samples:
             break
+        covered = min((bi + 1) * args.batch_size, args.samples)
+        if bi % world != rank:
+            continue
         result = sample(sample_ldm.batch_generator(device, 0, bi),
                         {k: v for k, v in batch.items() if k in COND_KEYS})
         result = result.float().cpu().numpy()
         inputs = batch["down" if args.mode == "upsample" else "masked_image"]
-        for j in range(min(len(result), args.samples - written)):
+        for j in range(min(len(result),
+                           args.samples - bi * args.batch_size)):
             idx = bi * args.batch_size + j
             np.save(os.path.join(dirs["result"], f"{idx}.npy"), result[j])
             np.save(os.path.join(dirs["target"], f"{idx}.npy"),
                     batch["jpg"][j])
             np.save(os.path.join(dirs["input"], f"{idx}.npy"), inputs[j])
             written += 1
-    print(f"wrote {written} conditional samples to {args.out} on {device}")
-    if written < args.samples:
-        print(f"warning: dataset exhausted at {written} < requested "
+    print(f"process {rank}/{world}: wrote {written} conditional samples to "
+          f"{args.out} on {device}")
+    if covered < args.samples:
+        print(f"warning: dataset exhausted at {covered} < requested "
               f"{args.samples} samples", file=sys.stderr)
     return written
 

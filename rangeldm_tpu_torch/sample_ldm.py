@@ -7,11 +7,20 @@ Writes per sample `{i}.bin` (the point cloud, depth < 90 m,
 ldm/inference.py:173-177), `{i}_bev.png` (BEV density) and `{i}_range.png`
 (the range channel). Runs on CUDA unless `--device cpu` is given; without a
 CUDA device and without that flag it stops with an error.
+
+The work splits as the JAX package's does (rangeldm_tpu/sample_ldm.py:
+262-278, 369-402): each batch over a local mesh of this process's cards
+(`--mesh_devices auto`: as many as divide the batch), and the batches over
+the processes of a torchrun launch (`python -m torch.distributed.run
+--nproc_per_node N -m rangeldm_tpu_torch.sample_ldm ...`, one card each),
+rank r taking batches r, r + N, ... Batch b's noise comes from (seed, b)
+alone, so any split writes the files one process writes.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import os
@@ -32,17 +41,19 @@ from rangeldm_tpu_torch.geometry.sensors import SensorSpec, get_spec
 from rangeldm_tpu_torch.geometry.voxelize import to_voxel
 from rangeldm_tpu_torch.models.unet import UNet2D
 from rangeldm_tpu_torch.models.vae import AutoencoderKL
+from rangeldm_tpu_torch.parallel.mesh import (
+    default_cuda_device, largest_divisible_prefix, local_devices,
+    process_shard,
+)
 from rangeldm_tpu_torch.pipelines.samplers import ddim_sample, latent_sample
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA device, which must exist; "cpu" must be asked
-    for explicitly."""
+    """`None` means the CUDA device, which must exist: cuda:{LOCAL_RANK}
+    under torchrun, else the current one; "cpu" must be asked for
+    explicitly."""
     if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' (--device cpu) to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
+        return default_cuda_device()
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
@@ -134,26 +145,62 @@ def pipe_pos_encoding(pipe) -> bool:
     return (cfg.in_channels - cfg.out_channels) == 1
 
 
+def sampling_mesh(pipe, batch_size: int, mesh) -> tuple:
+    """`mesh` as a tuple of devices starting at the pipeline's device (None:
+    that device alone); the batch must split evenly over it."""
+    mesh = tuple(torch.device(d) for d in mesh) if mesh else (
+        pipe["device"],)
+    if mesh[0] != pipe["device"]:
+        raise ValueError(f"a sampling mesh starts at the pipeline's device "
+                         f"{pipe['device']}, not {mesh[0]}")
+    if batch_size % len(mesh):
+        raise ValueError(
+            f"batch_size {batch_size} not divisible by mesh size "
+            f"{len(mesh)}; pick a multiple so every chip gets equal work")
+    return mesh
+
+
+def replicas(pipe, mesh) -> tuple:
+    """(UNets, VAEs): the models on each device of `mesh`, each made once
+    and kept in the pipe dict; the pipeline's own device holds its own
+    modules."""
+    store = pipe.setdefault("replicas", {str(pipe["device"]): (
+        pipe["unet"], pipe["vae"])})
+    for dev in mesh:
+        if str(dev) not in store:
+            store[str(dev)] = tuple(
+                None if m is None else copy.deepcopy(m).to(dev)
+                for m in (pipe["unet"], pipe["vae"]))
+    unets, vaes = zip(*(store[str(dev)] for dev in mesh))
+    return unets, vaes
+
+
 def build_sampler(pipe, batch_size: int, num_steps: int = 50,
                   method: str = "ddim", eta: float = 0.0,
-                  final_only: bool = True):
+                  final_only: bool = True, mesh=None):
     """A function `sample(generator) -> (B, H, W, C)` images on the
     pipeline's device, in its dtype. `eta` is the DDIM stochasticity.
     final_only=False (latent pipelines) makes it return (images, decoded
-    state before every step) as `latent_sample` does."""
-    unet, cfg = pipe["unet"], pipe["unet_cfg"]
+    state before every step) as `latent_sample` does. `mesh`, a tuple of
+    devices from the pipeline's on (`resolve_sampling_mesh`), splits every
+    batch over them, one replica of the models on each, with the same
+    result (pipelines/samplers.py)."""
+    mesh = sampling_mesh(pipe, batch_size, mesh)
+    unets, vaes = replicas(pipe, mesh)
+    cfg = pipe["unet_cfg"]
     h, w = cfg.sample_size
     shape = (batch_size, h, w, cfg.out_channels)
     kw = dict(num_steps=num_steps, eta=eta, method=method,
               pos_encoding=pipe_pos_encoding(pipe), dtype=pipe["dtype"],
-              device=pipe["device"])
+              mesh=mesh)
 
     if pipe["vae"] is not None:
-        vae, sf = pipe["vae"], pipe["vae_cfg"].scaling_factor
+        sf = pipe["vae_cfg"].scaling_factor
 
         @torch.inference_mode()
         def sample(generator: Optional[torch.Generator] = None):
-            return latent_sample(unet, vae.decode, pipe["schedule"], shape,
+            return latent_sample(unets, [v.decode for v in vaes],
+                                 pipe["schedule"], shape,
                                  sf, generator, final_only=final_only,
                                  **kw)
     elif not final_only:
@@ -162,9 +209,26 @@ def build_sampler(pipe, batch_size: int, num_steps: int = 50,
         # pixel space: ddim_sample runs every method, ddpm included
         @torch.inference_mode()
         def sample(generator: Optional[torch.Generator] = None):
-            return ddim_sample(unet, pipe["schedule"], shape, generator,
+            return ddim_sample(unets, pipe["schedule"], shape, generator,
                                **kw)
     return sample
+
+
+def resolve_sampling_mesh(mesh_devices: str, batch_size: int,
+                          device) -> tuple:
+    """The CLIs' local mesh policy (rangeldm_tpu/sample_ldm.py:262-278):
+    'auto' takes the largest prefix of this process's devices
+    (`parallel.mesh.local_devices`) that divides the batch; an integer
+    pins the count."""
+    local = local_devices(device)
+    if str(mesh_devices).strip().lower() == "auto":
+        n = largest_divisible_prefix(len(local), batch_size)
+    else:
+        n = int(mesh_devices)
+        if n > len(local):
+            raise ValueError(f"--mesh_devices {n} > {len(local)} local "
+                             f"devices")
+    return tuple(local[:max(n, 1)])
 
 
 def apply_meta_normalization(spec: SensorSpec, meta) -> SensorSpec:
@@ -265,8 +329,13 @@ def main(argv=None):
                     help="back-projection geometry (default kitti360)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA device; 'cpu' "
-                         "must be asked for)")
+                    help="torch device (default: the CUDA device, "
+                         "cuda:{LOCAL_RANK} under torchrun; 'cpu' must be "
+                         "asked for)")
+    ap.add_argument("--mesh_devices", default="auto",
+                    help="local devices to split each batch over: 'auto' "
+                         "(as many as divide the batch), an integer, or 1 "
+                         "for none")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -274,22 +343,26 @@ def main(argv=None):
     if args.timestep_spacing:
         pipe["schedule"] = Schedule(dataclasses.replace(
             pipe["schedule"].cfg, timestep_spacing=args.timestep_spacing))
+    mesh = resolve_sampling_mesh(args.mesh_devices, args.batch_size, device)
     sample = build_sampler(pipe, args.batch_size, args.steps, args.method,
-                           eta=args.eta)
+                           eta=args.eta, mesh=mesh)
     sensor = args.sensor or pipe["meta"].get("sensor", "kitti360")
     spec = apply_meta_normalization(
         adapt_spec_to_model(get_spec(sensor), pipe_image_size(pipe)),
         pipe["meta"])
 
+    # the sample range split over the processes (ldm/inference.py:159, 174)
+    rank, world = process_shard()
     written = 0
-    for b in range(-(-args.samples // args.batch_size)):
+    for b in range(rank, -(-args.samples // args.batch_size), world):
         imgs = sample(batch_generator(device, args.seed, b))
         start = b * args.batch_size
         imgs = imgs[:max(0, min(args.batch_size, args.samples - start))]
         if len(imgs):
             save_outputs(imgs, spec, args.out, start)
             written += len(imgs)
-    print(f"wrote {written} samples to {args.out} on {device}")
+    print(f"process {rank}/{world} (mesh of {len(mesh)} "
+          f"devices): wrote {written} samples to {args.out} on {device}")
     return written
 
 

@@ -37,8 +37,23 @@ the final pipeline with its run record (sensor and normalization), which
 VAE trainer's, train_vae.py) or a diffusers-layout VAE or pipeline
 directory.
 
-Not ported yet: data-parallel training, reading orbax checkpoints, and
-the TensorBoard and wandb sinks.
+Data-parallel training runs one process per GPU under torchrun:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m rangeldm_tpu_torch.train_ldm --cfg <yaml>...
+
+Rank r trains on cuda:{LOCAL_RANK} (an explicit --device wins) over NCCL
+(gloo on the CPU). Its loader reads its own slice of every epoch at the
+config's batch, so the global batch is train_batch_size x world, the JAX
+package's convention; the step averages the gradients over the ranks
+(training/ldm_trainer.py). Rank 0 writes the checkpoints, the scalar log,
+the unconditional sample grids and the final pipeline, behind barriers; a
+conditional model's grids are written by every rank, with the suffix
+_p{rank}. A SIGUSR1 to any rank checkpoints: the ranks agree on it at
+the next step boundary.
+
+Not ported yet: reading orbax checkpoints, and the TensorBoard and wandb
+sinks.
 """
 
 from __future__ import annotations
@@ -65,6 +80,9 @@ from rangeldm_tpu_torch.geometry.sensors import get_spec
 from rangeldm_tpu_torch.models.unet import UNet2D, UNetConfig
 from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
 from rangeldm_tpu_torch.models.zoo import ModelSpec, get_model_spec
+from rangeldm_tpu_torch.parallel.mesh import (
+    barrier, broadcast_, init_distributed, is_primary, process_shard,
+)
 from rangeldm_tpu_torch.pipelines.samplers import (
     conditional_latent_sample, ddim_sample, latent_sample, to_bcwh, to_bhwc,
 )
@@ -164,6 +182,8 @@ class LdmTrainer:
         if vae is not None and cfg.get("vae_checkpoint"):
             vae = load_vae(cfg.vae_checkpoint, self.spec.vae)
         self.unet = unet.to(self.device).train()
+        # every rank starts from rank 0's weights
+        broadcast_(list(self.unet.parameters()) + list(self.unet.buffers()))
         self.vae = (vae.to(self.device).eval().requires_grad_(False)
                     if vae is not None else None)
 
@@ -304,18 +324,18 @@ class LdmTrainer:
         shape = (batch_size, h, w, self.spec.unet.out_channels)
         kw = dict(num_steps=num_steps,
                   pos_encoding=self.train_cfg.pos_encoding,
-                  device=self.device)
+                  mesh=(self.device,))
 
         @torch.no_grad()
         def sample(generator: torch.Generator) -> torch.Tensor:
             unet = self._dump_model()
             with self._autocast():
                 if self.vae is not None:
-                    return latent_sample(unet, self.vae.decode,
+                    return latent_sample((unet,), (self.vae.decode,),
                                          self.schedule, shape,
                                          self.train_cfg.scaling_factor,
                                          generator, **kw)
-                return ddim_sample(unet, self.schedule, shape, generator,
+                return ddim_sample((unet,), self.schedule, shape, generator,
                                    **kw)
         return sample
 
@@ -332,11 +352,11 @@ class LdmTrainer:
             with self._autocast():
                 cond = self.cond_fn(cond_inputs, generator)
                 return conditional_latent_sample(
-                    unet, self.vae.decode, self.schedule, shape,
-                    self.train_cfg.scaling_factor, cond, generator,
+                    (unet,), (self.vae.decode,), self.schedule, shape,
+                    self.train_cfg.scaling_factor, (cond,), generator,
                     num_steps=num_steps,
                     pos_encoding=self.train_cfg.pos_encoding,
-                    device=self.device)
+                    mesh=(self.device,))
         return sample
 
     def _dump_norm(self):
@@ -377,18 +397,25 @@ class LdmTrainer:
             "down" if "down" in cond_batch else "masked_image"][:n])
         mean, std = self._dump_norm()
         base = os.path.join(self.out_dir, "samples")
+        # each rank samples from its own batch's conditions
+        rank, world = process_shard()
+        suffix = f"_p{rank}" if world > 1 else ""
         for name, imgs in grids.items():
             save_range_image_grid(
                 imgs.float().cpu().numpy(),
-                os.path.join(base, f"samples_step{step:08d}_{name}.png"),
+                os.path.join(base,
+                             f"samples_step{step:08d}_{name}{suffix}.png"),
                 mean=mean, std=std)
-        return os.path.join(base, f"samples_step{step:08d}_result.png")
+        return os.path.join(base, f"samples_step{step:08d}_result{suffix}.png")
 
     def dump_samples(self, step: int, cond_batch=None) -> Optional[str]:
         """Write <output_dir>/samples/samples_step{step:08d}.png (a
         conditional model: _result, _target and _input grids from
-        `cond_batch`); returns the path, or None for a conditional model
-        without a condition batch."""
+        `cond_batch`, with the suffix _p{rank} on every rank of a
+        distributed run); returns the path, or None for a conditional model
+        without a condition batch and on the ranks other than 0 of a
+        distributed run of an unconditional one (its grid depends on the
+        step alone)."""
         if self.spec.cond_channels:
             if cond_batch is None or self.cond_fn is None:
                 log.warning("sample_every_steps needs a condition batch for "
@@ -397,6 +424,8 @@ class LdmTrainer:
                             "dump_samples(cond_batch=...))")
                 return None
             return self._dump_conditional(step, cond_batch)
+        if not is_primary():
+            return None
         sample = self.make_sample_fn(
             num_steps=int(self.cfg.get("ddpm_num_inference_steps", 50)))
         images = sample(self._generator(step)).float().cpu().numpy()
@@ -416,8 +445,8 @@ class LdmTrainer:
         when one is given. A checkpoint every `checkpointing_steps`, a
         sample dump every `sample_every_steps` (a conditional model samples
         from the current batch's conditions), and a checkpoint at the next
-        step boundary after SIGUSR1 or when an exception escapes. Returns
-        the last logged record."""
+        step boundary after SIGUSR1 or when an exception escapes (then
+        rank 0 writes it alone). Returns the last logged record."""
         cfg = self.cfg
         ckpt_steps = int(cfg.get("checkpointing_steps", 500))
         sample_steps = cfg.get("sample_every_steps")
@@ -433,7 +462,10 @@ class LdmTrainer:
         def save_now():
             self.ckpt.save(self.state.step, self.state)
 
-        with emergency_checkpoint(save_now) as melk:
+        def write_now():
+            self.ckpt.write(self.state.step, self.state)
+
+        with emergency_checkpoint(save_now, on_error=write_now) as melk:
             for batch in batches:
                 batch = self._to_device(batch)
                 metrics = self.train_step(self.state, batch,
@@ -467,19 +499,22 @@ class LdmTrainer:
         size, the sensor and the range normalization it was trained with
         (rangeldm_tpu/train_ldm.py:496-527). `RangePipeline.from_pretrained`
         loads it (EMA weights by default) and back-projects with that
-        sensor and normalization."""
+        sensor and normalization. Rank 0 writes it; every rank returns once
+        it is written."""
         path = os.path.join(self.out_dir, "pipeline")
-        ema = (self.state.ema_state_dict() if self.state.ema is not None
-               else None)
-        record = {"model": self.spec.name,
-                  "pos_encoding": self.train_cfg.pos_encoding,
-                  "image_size": list(self.spec.image_size),
-                  "sensor": self.cfg.get("data", {}).get(
-                      "sensor", self.spec.sensor),
-                  "normalization": self._norm_record()}
-        save_diffusers_pipeline(path, self.unet, self.vae,
-                                dataclasses.asdict(self.schedule.cfg),
-                                unet_ema=ema, record=record)
+        if is_primary():
+            ema = (self.state.ema_state_dict() if self.state.ema is not None
+                   else None)
+            record = {"model": self.spec.name,
+                      "pos_encoding": self.train_cfg.pos_encoding,
+                      "image_size": list(self.spec.image_size),
+                      "sensor": self.cfg.get("data", {}).get(
+                          "sensor", self.spec.sensor),
+                      "normalization": self._norm_record()}
+            save_diffusers_pipeline(path, self.unet, self.vae,
+                                    dataclasses.asdict(self.schedule.cfg),
+                                    unet_ema=ema, record=record)
+        barrier("save_final")
         return path
 
 
@@ -508,32 +543,37 @@ def main(argv=None) -> LdmTrainer:
                          "override (vae/main.py:632-636)")
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA device; 'cpu' "
-                         "must be asked for)")
+                    help="torch device (default: the CUDA device, "
+                         "cuda:{LOCAL_RANK} under torchrun; 'cpu' must be "
+                         "asked for)")
     args = ap.parse_args(argv)
     cfg = Cfg.wrap(expand_env(load_config(*args.cfg)))
 
+    device = resolve_device(args.device)
+    _, world = init_distributed(device)
     ds = build_dataset(cfg)
     bs = int(cfg.get("train_batch_size", 32))
-    trainer = LdmTrainer(cfg, device=args.device)
+    trainer = LdmTrainer(cfg, device=device)
     if (cfg.get("cache_latents") and trainer.vae is not None
             and not cfg.get("upsample") and not cfg.get("inpainting")):
         # unconditional training with a frozen VAE: encode the dataset once
         # and train from the cached posterior moments; the tag carries the
-        # encode dtype, since bf16 and f32 encodes differ
+        # encode dtype, since bf16 and f32 encodes differ. Every rank
+        # encodes the whole pass and the cache's atomic write wins.
         dtype = torch.finfo(trainer.compute_dtype).dtype
         moments = precompute_moments(
             trainer.vae, ds, batch_size=bs,
             out_path=os.path.join(trainer.out_dir, "latent_moments.npy"),
             tag=f"{params_fingerprint(trainer.vae)}:{dtype}", log=print,
             dtype=trainer.compute_dtype)
-        loader = RangeLoader(MomentsDataset(moments), batch_size=bs)
+        loader = RangeLoader(MomentsDataset(moments), batch_size=bs,
+                             shard_by_process=world > 1)
     else:
         if cfg.get("cache_latents"):
             print("[latent-cache] cache_latents ignored: it applies only "
                   "to unconditional training with a frozen VAE "
                   "(conditional runs need per-step images for conditions)")
-        loader = RangeLoader(ds, batch_size=bs)
+        loader = RangeLoader(ds, batch_size=bs, shard_by_process=world > 1)
 
     if len(loader) == 0:
         raise ValueError(f"no training batch: {len(loader.dataset)} samples "

@@ -37,7 +37,17 @@ differ in the last bits. The final weights are the sgm-grammar
 `vae_sgm.safetensors` and `vae_sgm_ema.safetensors` under output_dir,
 which `train_ldm.load_vae` and `eval_vae` read; no orbax tree is written.
 
-Not ported: data-parallel training (the JAX package's shard_by_process).
+Data-parallel training runs one process per GPU under torchrun
+(`python -m torch.distributed.run --nproc_per_node N -m
+rangeldm_tpu_torch.train_vae --cfg ...`), as train_ldm does: each rank
+reads its own slice of every epoch at the config's batch_size, the steps
+average their gradients over the ranks and the discriminator's BatchNorm
+takes the global batch's statistics (training/vae_trainer.py), rank 0
+writes the checkpoints, the scalar log, the validation and the final
+weights, and every rank writes its own reconstruction grids
+(`..._p{rank}.png`). The learning rate stays base_lr * batch_size, the JAX
+package's rule: the reference's Lightning run multiplies it by the number
+of GPUs as well.
 """
 
 from __future__ import annotations
@@ -63,6 +73,9 @@ from rangeldm_tpu_torch.models.discriminator import (
 )
 from rangeldm_tpu_torch.models.lpips import make_perceptual_fn
 from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
+from rangeldm_tpu_torch.parallel.mesh import (
+    barrier, broadcast_, init_distributed, is_primary, process_shard,
+)
 from rangeldm_tpu_torch.pipelines.samplers import to_bcwh, to_bhwc
 from rangeldm_tpu_torch.sample_ldm import resolve_device
 from rangeldm_tpu_torch.training.checkpoint import TrainCheckpointer
@@ -156,6 +169,10 @@ class VaeTrainer:
         self.lr = base_lr * bs if cfg.get("scale_lr", True) else base_lr
         self.state = VaeGanState.create(vae.to(self.device),
                                         disc.to(self.device), self.lr, lc)
+        # every rank starts from rank 0's weights, statistics and EMA
+        st = self.state
+        broadcast_([*st.vae.parameters(), *st.disc.parameters(),
+                    *st.disc.buffers(), st.logvar.data, *st.ema])
 
         voxel_fn = None
         if lc.needs_voxels:
@@ -243,11 +260,14 @@ class VaeTrainer:
         ckpt_every = int(cfg.get("checkpoint_every_steps", 1020))
         image_logger = None
         if cfg.get("log_images_every"):
+            # each rank logs its own batch
+            rank, world = process_shard()
             image_logger = ImageLogger(
                 os.path.join(self.out_dir, "images"),
                 every=int(cfg.log_images_every),
                 mean=float(self.sensor_spec.mean),
-                std=float(self.sensor_spec.std))
+                std=float(self.sensor_spec.std),
+                suffix=f"_p{rank}" if world > 1 else "")
         logger = ScalarLogger(self.out_dir,
                               tensorboard=bool(cfg.get("tensorboard", True)),
                               csv=bool(cfg.get("csv_log", False)),
@@ -259,7 +279,10 @@ class VaeTrainer:
         def save_now():
             self.ckpt.save(self.state.step, self.state)
 
-        with emergency_checkpoint(save_now) as melk:
+        def write_now():
+            self.ckpt.write(self.state.step, self.state)
+
+        with emergency_checkpoint(save_now, on_error=write_now) as melk:
             for batch in batches:
                 x = self._to_device(batch)
                 metrics = self.train_step(x)
@@ -327,11 +350,14 @@ class VaeTrainer:
     def save_final(self) -> str:
         """Write output_dir/vae_sgm.safetensors (the live weights) and
         vae_sgm_ema.safetensors (the EMA's) in the sgm key grammar; returns
-        the first path."""
+        the first path. Rank 0 writes; every rank returns once both are
+        written."""
         path = os.path.join(self.out_dir, "vae_sgm.safetensors")
-        write_safetensors(self.state.vae.state_dict(), path)
-        write_safetensors(self.state.ema_state_dict(), os.path.join(
-            self.out_dir, "vae_sgm_ema.safetensors"))
+        if is_primary():
+            write_safetensors(self.state.vae.state_dict(), path)
+            write_safetensors(self.state.ema_state_dict(), os.path.join(
+                self.out_dir, "vae_sgm_ema.safetensors"))
+        barrier("save_final")
         return path
 
 
@@ -359,19 +385,22 @@ def main(argv=None) -> VaeTrainer:
                          "override (vae/main.py:632-636)")
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA device; 'cpu' "
-                         "must be asked for)")
+                    help="torch device (default: the CUDA device, "
+                         "cuda:{LOCAL_RANK} under torchrun; 'cpu' must be "
+                         "asked for)")
     args = ap.parse_args(argv)
     cfg = Cfg.wrap(expand_env(load_config(*args.cfg)))
 
+    device = resolve_device(args.device)
+    _, world = init_distributed(device)
     ds_config = dataset_config(cfg)
     bs = int(cfg.get("batch_size", 16))
     loader = RangeLoader(RangeImageDataset(ds_config, train=True),
-                         batch_size=bs)
+                         batch_size=bs, shard_by_process=world > 1)
     if len(loader) == 0:
         raise ValueError(f"no training batch: {len(loader.dataset)} samples "
                          f"under data.root, batch size {bs}")
-    trainer = VaeTrainer(cfg, device=args.device)
+    trainer = VaeTrainer(cfg, device=device)
     start = trainer.resume()
     if start:
         print(f"[resume] restored step {start}")
@@ -390,9 +419,9 @@ def main(argv=None) -> VaeTrainer:
         batches.close()     # stops the loader's producer thread
 
     # the held-out split (drives 0000/0002), as vae/main.py:905-906's
-    # trainer.test: live and EMA reconstruction losses
+    # trainer.test: live and EMA reconstruction losses, on rank 0
     val_ds = RangeImageDataset(ds_config, train=False)
-    if len(val_ds):
+    if len(val_ds) and is_primary():
         val = trainer.validate(RangeLoader(val_ds, batch_size=bs,
                                            shuffle=False, drop_last=False))
         print("[val]", json.dumps(val))

@@ -13,6 +13,10 @@ No pickle is read or written. Each checkpoint is written into a sibling
 temporary directory, synced and renamed into place, so a crash never
 leaves a half-written `checkpoint_{step}`. The orbax checkpoints of the JAX
 package are not read.
+
+In a distributed run (parallel/mesh.py) rank 0 writes and `save` returns
+on every rank once the checkpoint is in place, as the JAX package's save
+does (rangeldm_tpu/training/checkpoint.py:60-121); every rank restores.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from rangeldm_tpu_torch.convert import read_safetensors, write_safetensors
+from rangeldm_tpu_torch.parallel.mesh import barrier, is_primary
 
 TENSORS = "tensors.safetensors"
 SCALARS = "state.json"
@@ -73,10 +78,21 @@ class TrainCheckpointer:
         return steps[-1] if steps else None
 
     def save(self, step: int, state) -> str:
-        """Write `state.state_dict()` as checkpoint_{step}, replacing one of
-        the same step, then remove the oldest beyond `total_limit`."""
-        sd = state.state_dict()
+        """`write` on rank 0, then a barrier: every rank returns once the
+        checkpoint is in place."""
+        final = self.write(step, state)
+        barrier(f"checkpoint_{int(step)}")
+        return final
+
+    def write(self, step: int, state) -> str:
+        """On rank 0 (the only process of a run without a group): write
+        `state.state_dict()` as checkpoint_{step}, replacing one of the
+        same step, then remove the oldest beyond `total_limit`. Other ranks
+        write nothing. Returns the checkpoint's path."""
         final = self.path(step)
+        if not is_primary():
+            return final
+        sd = state.state_dict()
         tmp = os.path.join(self.directory,
                            f".checkpoint_{int(step)}.tmp-{os.getpid()}")
         if os.path.exists(tmp):

@@ -51,8 +51,9 @@ class ImageLogger:
 
     def __init__(self, out_dir: str, every: int = 1000,
                  increase_log_steps: bool = True, max_images: int = 8,
-                 mean: float = 20.0, std: float = 40.0):
+                 mean: float = 20.0, std: float = 40.0, suffix: str = ""):
         self.out_dir = out_dir
+        self.suffix = suffix      # e.g. _p{rank}: one file per rank
         self.every = every
         self.max_images = max_images
         self.mean, self.std = mean, std
@@ -67,5 +68,5 @@ class ImageLogger:
         for name, imgs in named_images.items():
             save_range_image_grid(
                 np.asarray(imgs), os.path.join(
-                    self.out_dir, f"{name}_step{step:08d}.png"),
+                    self.out_dir, f"{name}_step{step:08d}{self.suffix}.png"),
                 mean=self.mean, std=self.std, max_images=self.max_images)

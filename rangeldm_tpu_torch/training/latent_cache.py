@@ -9,11 +9,15 @@ the cached moments with its own generator, as `latent_dist.sample()` does.
 
 The moments are kept as an .npy beside the run, (N, h, w, 2z) float32, with
 a .json sidecar {n, tag, data_tag, shape}; a cache is reused only when
-every field matches.
+every field matches. In a distributed run every rank encodes the whole
+pass, as the JAX package's processes do (rangeldm_tpu/training/
+latent_cache.py:110-123): both files are published by rename, so the last
+complete write wins and no rank reads a partial one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -134,10 +138,11 @@ def precompute_moments(vae: torch.nn.Module, dataset, batch_size: int = 32,
     moments.flush()
     del moments
     # a sidecar never describes an .npy it was not written for
-    if os.path.exists(out_path + ".json"):
+    with contextlib.suppress(FileNotFoundError):
         os.remove(out_path + ".json")
     os.replace(tmp, out_path)
-    with open(out_path + ".json", "w") as f:
+    with open(tmp + ".json", "w") as f:
         json.dump({"n": n, "tag": tag, "data_tag": data_tag,
                    "shape": list(shape)}, f)
+    os.replace(tmp + ".json", out_path + ".json")
     return np.load(out_path, mmap_mode="r")

@@ -15,6 +15,12 @@ Randomness comes from the caller's `torch.Generator`; `noise`,
 `timesteps`, `posterior_noise` and `cond_posterior_noise` may be given
 instead, so that a test can feed the same draws to this step and to the
 JAX package's.
+
+Under torch.distributed each rank takes a local batch: every draw is made
+for the global batch and sliced to the rank's rows (`parallel.mesh.
+global_draw`), and the gradients and the loss are averaged over the ranks
+before the clip (`all_reduce_mean_`), so that the clip sees the global
+norm and N ranks take the step one process takes on the global batch.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from rangeldm_tpu_torch.diffusion.schedule import Schedule
 from rangeldm_tpu_torch.models.vae import gaussian_sample
+from rangeldm_tpu_torch.parallel.mesh import all_reduce_mean_, global_draw
 from rangeldm_tpu_torch.pipelines.samplers import make_pos_encoding
 from rangeldm_tpu_torch.training.ema import ema_update, power_decay
 from rangeldm_tpu_torch.training.train_state import TrainState
@@ -46,10 +53,13 @@ class LdmTrainConfig:
 
 def apply_updates_and_ema(state: TrainState, loss: torch.Tensor,
                           cfg: LdmTrainConfig) -> Dict[str, torch.Tensor]:
-    """The epilogue of a step: optimizer update, EMA, step increment. The
-    EMA decay is read at the pre-increment step (diffusers' get_decay uses
+    """The epilogue of a step: the gradients and the loss averaged over
+    the ranks, optimizer update, EMA, step increment. The EMA decay is read
+    at the pre-increment step (diffusers' get_decay uses
     optimization_step - 1), so the first update copies the parameters into
     the shadow."""
+    all_reduce_mean_([p.grad for p in state.model.parameters()
+                      if p.grad is not None] + [loss])
     grad_norm = state.apply_gradients()
     if state.ema is not None:
         decay = power_decay(state.step, cfg.ema_inv_gamma, cfg.ema_power,
@@ -104,7 +114,12 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
                 return latents
             with autocast(images.device):
                 moments = vae.encode_moments(images)
-        return gaussian_sample(moments.float(), generator,
+        if posterior_noise is None:
+            b, c, *rest = moments.shape
+            posterior_noise = global_draw(lambda s: torch.randn(
+                s, generator=generator, device=moments.device),
+                (b, c // 2, *rest))
+        return gaussian_sample(moments.float(),
                                noise=posterior_noise) * cfg.scaling_factor
 
     @torch.no_grad()
@@ -145,15 +160,23 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
                    posterior_noise: Optional[torch.Tensor] = None,
                    cond_posterior_noise: Optional[torch.Tensor] = None):
         latents = encode(batch, generator, posterior_noise)
+        dev = latents.device
+        if (cond_posterior_noise is None and cond_fn is not None
+                and isinstance(batch, dict) and "masked_image" in batch):
+            # the inpainting condition's posterior draw of the masked image
+            # (of the latents' shape)
+            cond_posterior_noise = global_draw(lambda s: torch.randn(
+                s, generator=generator, device=dev), latents.shape)
         cond = condition(batch, generator, cond_posterior_noise)
         b = latents.shape[0]
         if noise is None:
-            noise = torch.randn(latents.shape, generator=generator,
-                                dtype=latents.dtype, device=latents.device)
+            noise = global_draw(lambda s: torch.randn(
+                s, generator=generator, dtype=latents.dtype, device=dev),
+                latents.shape)
         if timesteps is None:
-            timesteps = torch.randint(0, schedule.cfg.num_train_timesteps,
-                                      (b,), generator=generator,
-                                      device=latents.device)
+            timesteps = global_draw(lambda s: torch.randint(
+                0, schedule.cfg.num_train_timesteps, s, generator=generator,
+                device=dev), (b,))
         model = state.model
         state.optimizer.zero_grad(set_to_none=True)
         k = cfg.grad_accum_steps

@@ -5,7 +5,9 @@
 stream and, when asked, to a Lightning-CSVLogger-style metrics.csv (header =
 union of keys, rewritten when new keys appear). It takes the JAX package's
 `tensorboard` and `wandb` switches, but those sinks are not ported: asking
-for one logs one warning and the run goes on with the other sinks.
+for one logs one warning and the run goes on with the other sinks. In a
+distributed run only rank 0 writes (the JAX package's `primary`
+default).
 
 `emergency_checkpoint` is the reference's "melk" machinery
 (vae/main.py:254-261, 876-895; rangeldm_tpu/training/loggers.py:129-180):
@@ -24,15 +26,21 @@ import signal
 import threading
 from typing import Callable, Dict, Iterator, Optional
 
+from rangeldm_tpu_torch.parallel.mesh import any_rank, is_primary
+
 log = logging.getLogger(__name__)
 
 
 class ScalarLogger:
     """Appends to <out_dir>/train_log.jsonl and, with csv=True,
-    <out_dir>/metrics.csv; each write is closed before `log` returns."""
+    <out_dir>/metrics.csv; each write is closed before `log` returns. On
+    any rank but 0 it writes nothing."""
 
     def __init__(self, out_dir: str, csv: bool = False,
                  tensorboard: bool = False, wandb: bool = False):
+        self.primary = is_primary()
+        if not self.primary:
+            return
         for sink, wanted in (("tensorboard", tensorboard), ("wandb", wandb)):
             if wanted:
                 log.warning("the %s sink is not available in this package; "
@@ -65,6 +73,8 @@ class ScalarLogger:
                 csv_mod.DictWriter(f, fieldnames=self._csv_keys).writerow(rec)
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
+        if not self.primary:
+            return
         rec = {k: float(v) for k, v in scalars.items()}
         rec["step"] = int(step)
         with open(self.jsonl_path, "a") as f:
@@ -75,26 +85,32 @@ class ScalarLogger:
 
 @contextlib.contextmanager
 def emergency_checkpoint(save_fn: Callable[[], None],
-                         signum: Optional[int] = signal.SIGUSR1
+                         signum: Optional[int] = signal.SIGUSR1,
+                         on_error: Optional[Callable[[], None]] = None
                          ) -> Iterator[Callable[[], bool]]:
     """Deferred "melk": the signal only sets a flag, and the yielded
     `poll()` runs `save_fn` at the caller's next step boundary, where the
     train state is consistent (a save inside the handler could run in the
     middle of an optimizer update). Callers poll after every step and after
-    long work between steps, such as a sample dump.
+    long work between steps, such as a sample dump; in a distributed run
+    every rank polls at the same points, and one rank's signal makes all
+    of them save (`save_fn` may be collective).
 
-    An exception that escapes the block saves once before it propagates.
+    An exception that escapes the block saves once before it propagates,
+    with `on_error` when given (a save that waits for no other rank, which
+    may never arrive), else `save_fn`.
     The handler is installed only on the main thread (Python allows no
     other); elsewhere only the save on an exception remains."""
     requested = threading.Event()
 
     def poll() -> bool:
-        """Save if a signal arrived since the last poll."""
-        if requested.is_set():
-            requested.clear()
-            save_fn()
-            return True
-        return False
+        """Save if a signal arrived on any rank since the last poll: the
+        ranks agree on it, so that every one saves at the same step."""
+        if not any_rank(requested.is_set()):
+            return False
+        requested.clear()
+        save_fn()
+        return True
 
     old = None
     installed = (signum is not None and
@@ -105,7 +121,7 @@ def emergency_checkpoint(save_fn: Callable[[], None],
         yield poll
     except BaseException:
         try:
-            save_fn()
+            (on_error or save_fn)()
         except Exception:  # noqa: BLE001 - the original error propagates
             log.exception("emergency checkpoint failed")
         raise

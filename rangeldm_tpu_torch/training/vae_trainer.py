@@ -23,6 +23,14 @@ reference's does.
 Both steps take the posterior noise as a tensor, or draw it from a
 `torch.Generator`; the trainer (train_vae.py) seeds one generator per
 step and stream, so a resumed run draws what an uninterrupted one draws.
+
+Under torch.distributed each rank steps on its local batch and the ranks
+take the step one process takes on the global batch: the posterior noise
+is drawn for the global batch and sliced (`parallel.mesh.global_draw`),
+the discriminator's BatchNorm uses the global batch's statistics, the
+adaptive weight's two last-layer gradients and both steps' gradients are
+averaged over the ranks by an explicit all-reduce (`torch.autograd.grad`
+fires no DDP hook), and so are the metrics.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch.nn.functional as F
 from rangeldm_tpu_torch.models.vae import (
     AutoencoderKL, gaussian_kl, gaussian_sample,
 )
+from rangeldm_tpu_torch.parallel.mesh import all_reduce_mean_, global_draw
 from rangeldm_tpu_torch.training.ema import ema_update, warmup_decay
 from rangeldm_tpu_torch.training.train_state import (
     adam_state_dict, load_adam_state,
@@ -208,13 +217,25 @@ class VaeGanState:
 
 def _apply(opt: torch.optim.Optimizer, params: List[torch.Tensor],
            grads) -> None:
-    """One optimizer update from `grads` (None for an unused parameter:
-    a zero gradient, as optax sees it), leaving no .grad behind."""
+    """One optimizer update from `grads` averaged over the ranks (None for
+    an unused parameter: a zero gradient, as optax sees it), leaving no
+    .grad behind."""
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    all_reduce_mean_(grads)
     for p, g in zip(params, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
+        p.grad = g
     opt.step()
     for p in params:
         p.grad = None
+
+
+def _mean_over_ranks(metrics: Metrics) -> Metrics:
+    """Detached copies of the metrics (means over the local batch),
+    averaged over the ranks: the global batch's."""
+    out = {k: v.detach().float().clone() for k, v in metrics.items()}
+    all_reduce_mean_(list(out.values()))
+    return out
 
 
 def make_vae_gan_steps(cfg: VaeLossConfig,
@@ -251,7 +272,11 @@ def make_vae_gan_steps(cfg: VaeLossConfig,
     def forward(vae, x, noise, generator):
         with autocast(x):
             moments = vae.encode_moments(x).float()
-        z = gaussian_sample(moments, generator, noise)
+        if noise is None:
+            b, c, *rest = moments.shape
+            noise = global_draw(lambda s: torch.randn(
+                s, generator=generator, device=x.device), (b, c // 2, *rest))
+        z = gaussian_sample(moments, noise=noise)
         with autocast(x):
             xrec = vae.decode(z).float()
         return xrec, moments
@@ -304,6 +329,7 @@ def make_vae_gan_steps(cfg: VaeLossConfig,
         w_last = vae.decoder.conv_out.weight
         (nll_g,) = torch.autograd.grad(nll_loss, w_last, retain_graph=True)
         (g_g,) = torch.autograd.grad(g_loss, w_last, retain_graph=True)
+        all_reduce_mean_([nll_g, g_g])      # the global losses' gradients
         d_weight = torch.clamp(
             torch.linalg.vector_norm(nll_g)
             / (torch.linalg.vector_norm(g_g) + 1e-4), 0.0, 1e4).detach()
@@ -325,7 +351,7 @@ def make_vae_gan_steps(cfg: VaeLossConfig,
                    "g_loss": g_loss, "d_weight": d_weight,
                    "disc_factor": torch.tensor(df, device=x.device),
                    "logvar": logvar_used, **extra}
-        return {k: v.detach() for k, v in metrics.items()}
+        return _mean_over_ranks(metrics)
 
     def disc_step(state: VaeGanState, x: torch.Tensor,
                   noise: Optional[torch.Tensor] = None,
@@ -345,8 +371,8 @@ def make_vae_gan_steps(cfg: VaeLossConfig,
         params = list(disc.parameters())
         _apply(state.disc_opt, params,
                torch.autograd.grad(d_loss, params, allow_unused=True))
-        return {"disc_loss": d_loss.detach(),
-                "logits_real": logits_real.detach().float().mean(),
-                "logits_fake": logits_fake.detach().float().mean()}
+        return _mean_over_ranks({
+            "disc_loss": d_loss, "logits_real": logits_real.float().mean(),
+            "logits_fake": logits_fake.float().mean()})
 
     return gen_step, disc_step

@@ -241,7 +241,8 @@ def test_conditional_chain_matches_jax(models, mode, method, steps):
             return m["vae"].decode(z)
 
         got_img = conditional_latent_sample(
-            u["unet"], decode, schedule, shape, sf, cond, num_steps=steps,
+            (u["unet"],), (decode,), schedule, shape, sf, (cond,),
+            num_steps=steps,
             method=method, noise=torch.from_numpy(x_t))
     np.testing.assert_allclose(torch_to_nhwc(seen[0]), want_z, **CHAIN_TOL)
     assert got_img.shape == (1, *IMAGE, 2)

@@ -40,12 +40,14 @@ def _qkv(shape, dtype, seed=0, n=3):
             for _ in range(n)]
 
 
-# the flagship shapes at batch 4 and at the parity gate's stage-report
-# batch 1, RangeDM's at its training batch 8, ragged T, T = 1, a long T;
+# the flagship shapes at batch 4, at the parity gate's stage-report batch
+# 1 and at a data-parallel rank's batches 2 (sampling) and 16 (training),
+# RangeDM's at its training batch 8, ragged T, T = 1, a long T;
 # then one head at every tile edge of the bf16 kernels (16-wide tiles, 64
 # rows a block) and at the longest T each kernel takes for the dtype ("max")
 SHAPES = [(64, 8, 1024), (128, 8, 256), (128, 8, 64), (16, 8, 1024),
           (32, 8, 256), (32, 8, 64), (512, 8, 256), (512, 8, 64),
+          (32, 8, 1024), (64, 8, 256), (64, 8, 64), (256, 8, 1024),
           (5, 8, 200), (3, 8, 1), (2, 8, 2048)] + [
     (1, 8, t) for t in (1, 15, 16, 17, 63, 65, 200, 1024, 2048)] + ["max"]
 
@@ -490,3 +492,67 @@ def test_vae_gan_steps_in_bf16_on_the_card():
     assert all(v.dtype == torch.float32 and torch.isfinite(v).all()
                for v in m.values())
     assert all(p.dtype == torch.float32 for p in state.vae.parameters())
+
+
+# -- the projection core (native/) as the card's machine builds it, and a
+# world of one over NCCL (parallel/mesh.py) -------------------------------
+
+def test_native_core_matches_numpy_on_the_card_machine():
+    """The core built with that machine's g++ against the numpy path on
+    tests/test_native.py's 30,000-point scan: within 1e-5, masks equal."""
+    import numpy as np
+    from chip_smoke import synthetic_scan
+    from rangeldm_tpu_torch.geometry.projection import range_image_np
+    from rangeldm_tpu_torch.geometry.sensors import get_spec
+    from rangeldm_tpu_torch.native import range_image_native
+    pc = synthetic_scan(np.random.default_rng(0), 30000)
+    spec = get_spec("kitti360")
+    got, want = range_image_native(pc, spec), range_image_np(pc, spec)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+def test_a_world_of_one_over_nccl_takes_the_plain_step(tmp_path):
+    """One flagship-shaped LdmTrainer step (tests/torch_port_ddp_worker.py's
+    config) in a world of one over NCCL, whose all-reduce of the gradients
+    divides by one, against the same step without a process group
+    (deterministic cuDNN, f32, TF32 off)."""
+    import socket
+    import torch.distributed as dist
+    from chip_smoke import adam_update_mismatches
+    from rangeldm_tpu_torch.train_ldm import LdmTrainer
+    from torch_port_ddp_worker import LDM_CFG, ldm_batches
+
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    images = ldm_batches()[0]
+    out = {}
+    try:
+        for name in ("plain", "nccl"):
+            if name == "nccl":
+                with socket.socket() as s:
+                    s.bind(("localhost", 0))
+                    port = s.getsockname()[1]
+                dist.init_process_group(
+                    "nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                    world_size=1)
+                assert dist.get_backend() == "nccl"
+            trainer = LdmTrainer(dict(LDM_CFG, output_dir=str(
+                tmp_path / name)), device="cuda")
+            batch = trainer._to_device({"jpg": images})
+            m = trainer.train_step(trainer.state, batch,
+                                   trainer.state.generator)
+            out[name] = (float(m["loss"]), trainer.state.state_dict())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    (loss_a, a), (loss_b, b) = out["plain"], out["nccl"]
+    assert abs(loss_a - loss_b) <= 1e-6 * abs(loss_a)
+    assert adam_update_mismatches(b, a, ("model/", "ema/"),
+                                  LDM_CFG["learning_rate"],
+                                  optimizer="adam",
+                                  betas=(0.95, 0.999)) == []

@@ -3,9 +3,10 @@ path, geometry/sensors.py, data/datasets.py) against the JAX package's, on
 the same synthetic scans. Projections, samples and conditions must be
 bit-exact; the loaders must yield the same batches in the same order.
 
-The JAX dataset projects through its C++ core when that is built; these
-tests hold the port against the JAX package's numpy path, which the core
-matches within 1e-5 (tests/test_native.py), by switching the core off."""
+Both datasets project through their C++ cores (the port's is its own copy
+of the JAX package's, tests/test_torch_port_native.py), which match the
+numpy path within 1e-5; the dataset test holds the port against the JAX
+package with both cores on and with both off."""
 
 import numpy as np
 import pytest
@@ -23,10 +24,15 @@ from rangeldm_tpu_torch.geometry import sensors as ts
 SENSORS = ["kitti360", "nuscenes", "kitti360_vanilla", "stf"]
 
 
-@pytest.fixture
-def numpy_only(monkeypatch):
-    """The JAX dataset on its numpy projection path."""
-    monkeypatch.setattr(rangeldm_tpu.native, "available", lambda: False)
+@pytest.fixture(params=["native", "numpy"])
+def cores(request, monkeypatch):
+    """Both datasets on their C++ cores, or both on the numpy path."""
+    if request.param == "numpy":
+        monkeypatch.setattr(rangeldm_tpu.native, "available", lambda: False)
+        monkeypatch.setattr(td, "range_image_native", tp.range_image_np)
+    else:
+        assert rangeldm_tpu.native.available()
+    return request.param
 
 
 def _scan(sensor, seed, n=20000):
@@ -103,7 +109,7 @@ DATASETS = {
 
 
 @pytest.mark.parametrize("case", sorted(DATASETS))
-def test_dataset_matches_jax(tmp_path, numpy_only, case):
+def test_dataset_matches_jax(tmp_path, cores, case):
     # each package projects on its own (the caches are the next test's)
     kw = dict(DATASETS[case], cache=False)
     root = _kitti_root(tmp_path / "kitti")
@@ -147,7 +153,7 @@ def test_caches_are_read_across_packages(tmp_path, monkeypatch, writer):
     def no_projection(*a, **k):
         raise AssertionError("projected instead of reading the cache")
 
-    monkeypatch.setattr(td, "range_image_np", no_projection)
+    monkeypatch.setattr(td, "range_image_native", no_projection)
     monkeypatch.setattr(jd, "range_image_np", no_projection)
     monkeypatch.setattr(rangeldm_tpu.native, "range_image_native",
                         no_projection)

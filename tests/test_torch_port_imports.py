@@ -55,7 +55,9 @@ def test_scan_sees_the_whole_package():
             "mmd.py", "jsd.py", "frd.py", "rangenet.py", "knn.py",
             "frd_pipeline.py", "chamfer.py", "precision.py",
             "discriminator.py", "lpips.py", "vae_trainer.py", "train_vae.py",
-            "eval_vae.py"} <= names
+            "eval_vae.py", "mesh.py"} <= names
+    assert (ROOT / "rangeldm_tpu_torch" / "native" / "__init__.py") in set(
+        _sources())
 
 
 def _run(code_or_args):
@@ -78,7 +80,7 @@ def test_importing_every_module_loads_no_jax():
         "print(len(mods))\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 41
+    assert int(proc.stdout.split()[-1]) >= 59
 
 
 def test_conditional_sampling_cli_starts_as_a_module():
@@ -135,3 +137,12 @@ def test_instantiate_maps_jax_targets_without_importing_jax():
         "assert not bad, bad\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["sample_ldm", "sample_conditional",
+                                    "parity_gate"])
+def test_sampling_clis_take_a_local_mesh(module):
+    proc = _run(["-m", f"rangeldm_tpu_torch.{module}", "--help"])
+    assert proc.returncode == 0, proc.stderr
+    assert "--mesh_devices" in proc.stdout
+

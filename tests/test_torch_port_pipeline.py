@@ -244,10 +244,10 @@ def test_pixel_space_release(tmp_path):
 
     unet, sched = pipe._p["unet"], pipe._p["schedule"]
     with torch.no_grad():
-        a = samplers.ddpm_sample(unet, sched, (2, 8, 32, 2),
+        a = samplers.ddpm_sample((unet,), sched, (2, 8, 32, 2),
                                  torch.Generator().manual_seed(4),
                                  num_steps=2, pos_encoding=True)
-        b = samplers.ddim_sample(unet, sched, (2, 8, 32, 2),
+        b = samplers.ddim_sample((unet,), sched, (2, 8, 32, 2),
                                  torch.Generator().manual_seed(4),
                                  num_steps=2, pos_encoding=True,
                                  method="ddpm")

@@ -98,7 +98,7 @@ def test_pixel_ddim50_chain_matches_jax(narrow_rangedm):
 
     x_t, want = (np.array(a) for a in jax_chain(key))
     with torch.no_grad():
-        got = ts.ddim_sample(m["unet"], Schedule(ScheduleConfig()), shape,
+        got = ts.ddim_sample((m["unet"],), Schedule(ScheduleConfig()), shape,
                              num_steps=50, pos_encoding=True,
                              noise=torch.from_numpy(x_t))
     assert got.shape == shape

@@ -201,7 +201,8 @@ def test_latent_chain_matches_jax(tiny_ldm, method, steps):
         return m["vae"].decode(z)
 
     with torch.no_grad():
-        got_img = ts.latent_sample(m["unet"], decode, schedule, shape, sf,
+        got_img = ts.latent_sample((m["unet"],), (decode,), schedule, shape,
+                                   sf,
                                    num_steps=steps, method=method,
                                    noise=torch.from_numpy(x_t))
     np.testing.assert_allclose(torch_to_nhwc(seen[0]), want_z, **CHAIN_TOL)
@@ -219,10 +220,11 @@ def test_latent_sample_trajectory(tiny_ldm):
     sf = m["vcfg"].scaling_factor
     sched = Schedule(ScheduleConfig())
     with torch.no_grad():
-        img, traj = ts.latent_sample(m["unet"], m["vae"].decode, sched,
+        img, traj = ts.latent_sample((m["unet"],), (m["vae"].decode,), sched,
                                      shape, sf, num_steps=3, noise=x_t,
                                      final_only=False)
-        final = ts.latent_sample(m["unet"], m["vae"].decode, sched, shape,
+        final = ts.latent_sample((m["unet"],), (m["vae"].decode,), sched,
+                                 shape,
                                  sf, num_steps=3, noise=x_t)
         first = ts.to_bhwc(m["vae"].decode(ts.to_bcwh(x_t) / sf))
     assert img.shape == (2, 2 * h, 2 * w, 2)
@@ -240,7 +242,7 @@ def test_generator_makes_samples_reproducible(tiny_ldm):
     def run(seed, method):
         with torch.no_grad():
             return ts.latent_sample(
-                m["unet"], m["vae"].decode, sched, (1, h, w, 4),
+                (m["unet"],), (m["vae"].decode,), sched, (1, h, w, 4),
                 m["vcfg"].scaling_factor,
                 torch.Generator().manual_seed(seed), num_steps=2,
                 method=method, eta=0.5)
