@@ -72,7 +72,7 @@ Phases, each printing one JSON line:
                  format, against a synthetic held-out drive of 32 scans:
                  exit code 1, finite MMD, JSD and FRD, 16 x (1 + 50) forward
                  kernel launches; `python -m rangeldm_tpu_torch.evaluate`
-                 on the gate's dumps (MMD, JSD, FRD; a process of its own)
+                 on the gate's dumps (MMD, JSD; a process of its own)
                  and `evaluate.main` on phase 7's densification triplets
                  (IoU, accuracy, MAE); RangeNet++ on the card against the
                  CPU and its rate at batch 8 with TF32 off and on, and how
@@ -83,6 +83,15 @@ Phases, each printing one JSON line:
                  six T=64 attention layers on the kernel against the same
                  model with them on the plain version (a known divergence by
                  design: the number, no bound)
+  12. spatial  - the flagship VAE azimuth-sharded over a local mesh of 4
+                 shards of cuda:0 (and over every card where there are
+                 several): decode of a batch of 4 latents and encode back,
+                 and the Waymo-scale decode to 64 x 2656, against the
+                 unsharded VAE (f32, TF32 off, SPATIAL_TOL), with the bf16
+                 gap, ms and peak memory; the sliced encoder and decoder and
+                 an EdgeConvResnetBlock card against CPU; maybe_trace and
+                 step_annotation around one flagship DDIM step, read back by
+                 trace_op_breakdown, and device_memory_stats
 Then the kernel summary line, the card line, and the result line. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -168,6 +177,16 @@ DDP_SAMPLES = 8                # (d): the sampling CLI, 2 ranks against one
 DDP_SAMPLE_BATCH = 2           # process: samples, batch and DDIM steps
 DDP_SAMPLE_STEPS = 5
 RANK_TIMEOUT = 300             # seconds a worker process may take
+SPATIAL_SHARDS = 4             # phase spatial: azimuth shards of cuda:0
+SPATIAL_LATENT = (16, 256)     # (beams, azimuth) of the flagship latent
+WAYMO_LATENT = (16, 664)       # decoded to 64 x 2656 (ldm/inference.py:169)
+EDGE_SHAPE = (1, 64, 1024, 64)  # one EdgeConvResnetBlock's input (B, C, W, H)
+SPATIAL_TOL = 1e-4             # f32, TF32 off, of the output's scale: the
+# sharded VAE against the unsharded one, and the sliced and EdgeConv modules
+# on the card against the CPU. cuDNN picks other f32 algorithms at a shard's
+# width, and the sharded GroupNorm takes E[x^2] - mean^2 where F.group_norm
+# takes Welford's: a few 1e-6 of the scale (1e-5 expected at most); TF32
+# (10 mantissa bits) would read 1e-3, a misplaced halo O(1)
 # rangeldm_tpu/configs/rangeldm_kitti360.yaml, the shipped flagship training
 # config, with the warm-up cut to 2 steps so that 10 steps move the weights;
 # output_dir is a temporary directory set at run time
@@ -1608,8 +1627,9 @@ def phase_eval(kernels, models, samples_root: str, smi) -> int:
     (`parity_gate.main`) on a seeded flagship pipeline with DDIM-50 over
     EVAL_SCANS samples in bf16, scored with MMD, JSD and FRD (RangeNet++ on
     a seeded darknet53 checkpoint) against a synthetic held-out drive; the
-    evaluate CLI on the gate's dumps (`python -m rangeldm_tpu_torch.evaluate`
-    in a process of its own, last, so that every timing of the phase is
+    evaluate CLI's MMD and JSD on the gate's dumps (`python -m
+    rangeldm_tpu_torch.evaluate` in a process of its own, last, so that
+    every timing of the phase is
     taken with nothing else running) and on phase 7's
     densification triplets (IoU, accuracy, MAE); RangeNet on the card
     against the CPU (with TF32 on as the control the bound must catch), its
@@ -1798,27 +1818,28 @@ def phase_eval(kernels, models, samples_root: str, smi) -> int:
                       chamfer_ms=cd_ms)
 
         # the evaluate CLI on the gate's dumps, as a user runs it, in its
-        # own process
+        # own process: MMD and JSD. Its FRD left the smoke when phase
+        # spatial took the script past half its time limit: its Frechet
+        # step is a second host sqrtm of the 4096-dim product (190-220 s)
+        # after the gate's, which stays; tests/test_torch_port_evaluate.py
+        # holds the CLI's FRD against the JAX package's
         here = os.path.dirname(os.path.abspath(__file__))
         env = dict(os.environ, KITTI360_DATASET=root, PYTHONPATH=os.pathsep
                    .join(filter(None, (here, os.environ.get("PYTHONPATH")))))
         t0 = time.perf_counter()
         cli = subprocess.run(
             [sys.executable, "-m", "rangeldm_tpu_torch.evaluate", "--exp",
-             out, "--mmd", "--jsd", "--frd", "--rangenet", ckpt, "--limit",
-             str(EVAL_SCANS), "--device", DEVICE], cwd=here, env=env,
+             out, "--mmd", "--jsd", "--limit", str(EVAL_SCANS), "--device",
+             DEVICE], cwd=here, env=env,
             capture_output=True, text=True, timeout=900)
         cli_s = time.perf_counter() - t0
         require(cli.returncode == 0, f"python -m rangeldm_tpu_torch.evaluate "
                                      f"exited {cli.returncode}: "
                                      f"{cli.stderr[-2000:]}")
         res = json.loads(cli.stdout.strip().splitlines()[-1])
-        frd_rel = abs(res["frd"] - scores["frd"]) / abs(scores["frd"])
-        require(res["mmd"] == scores["mmd"] and res["jsd"] == scores["jsd"]
-                and frd_rel <= 1e-3,
+        require(res["mmd"] == scores["mmd"] and res["jsd"] == scores["jsd"],
                 f"evaluate's {res} against the gate's {scores}")
-        fields.update(evaluate_cli_seconds=cli_s, evaluate_cli=res,
-                      evaluate_frd_rel=frd_rel)
+        fields.update(evaluate_cli_seconds=cli_s, evaluate_cli=res)
     emit("eval", card=smi, samples=EVAL_SCANS, batch=EVAL_BATCH,
          steps=EVAL_STEPS, dtype="bfloat16",
          peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1879,6 +1900,220 @@ def phase_t64(models, smi):
          ddim50_max_abs=(img_k - img_r).abs().max().item(),
          ddim50_scale=img_r.abs().max().item(),
          ddim50_mean_abs=(img_k - img_r).abs().mean().item())
+
+
+# -- phase spatial: the azimuth-sharded VAE, research modules, profiling ---
+
+def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, in float32."""
+    want = want.float()
+    return ((got.float().to(want.device) - want).abs().max()
+            / want.abs().max()).item()
+
+
+def wall_ms(fn, iters: int, devices) -> float:
+    """Host ms per call of fn() over `iters` calls after one warm-up, each
+    of `devices` synchronised before and after."""
+    fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def peak_gib(fn, device) -> float:
+    """max_memory_allocated of one call of fn(), GiB."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fn()
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device) / 2 ** 30
+
+
+def phase_spatial(kernels, models, smi) -> int:
+    """(a) the flagship VAE's decode of a batch of 4 latents (16 x 256) and
+    the encode of what it decoded, azimuth-sharded over a local mesh of 4
+    shards of cuda:0 (and over every card where there are several) against
+    the unsharded VAE: f32 with TF32 off within SPATIAL_TOL, the bf16 gap,
+    ms per call and peak memory of each; (b) the Waymo-scale decode, a
+    16 x 664 latent to 64 x 2656 over 4 shards; (c) SlicedEncoder /
+    SlicedDecoder at SlicedConfig's defaults on 64 x 1024 at batch 4 and
+    one EdgeConvResnetBlock, card against CPU; (d) maybe_trace around one
+    flagship DDIM step with step_annotation, read back by
+    trace_op_breakdown: the forward kernel's group above 0 ms and its
+    events equal to its launch count; device_memory_stats naming the card.
+    Returns the forward kernel's launches in (d)."""
+    from rangeldm_tpu_torch import sample_ldm
+    from rangeldm_tpu_torch.convert import save_diffusers_pipeline
+    from rangeldm_tpu_torch.models import experimental, sliced
+    from rangeldm_tpu_torch.parallel.sharded_vae import (
+        sharded_vae_decode, sharded_vae_encode,
+    )
+    from rangeldm_tpu_torch.parallel.spatial import (
+        gather_azimuth, shard_azimuth,
+    )
+    from rangeldm_tpu_torch.utils.precision import tf32
+    from rangeldm_tpu_torch.utils.profiling import (
+        device_memory_stats, maybe_trace, step_annotation, trace_op_breakdown,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE, 0)
+    spec = models.rangeldm_kitti360()
+    f = spec.vae.down_factor
+    torch.manual_seed(SEED)
+    vae = models.AutoencoderKL(spec.vae).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    meshes = {f"cuda:0 x{SPATIAL_SHARDS}": (dev,) * SPATIAL_SHARDS}
+    if torch.cuda.device_count() > 1:
+        meshes["every card"] = tuple(torch.device("cuda", i) for i in
+                                     range(torch.cuda.device_count()))
+
+    def decode(mesh, z):
+        return gather_azimuth(sharded_vae_decode(
+            vae, shard_azimuth(z, mesh)), dev)
+
+    def encode(mesh, x):
+        return gather_azimuth(sharded_vae_encode(
+            vae, shard_azimuth(x, mesh)), dev)
+
+    # (a) decode, then encode what was decoded, at the flagship's width
+    h, w = SPATIAL_LATENT
+    z = torch.randn((BATCH, spec.vae.z_channels, w, h), generator=gen,
+                    device=dev)
+    flagship = {}
+    with torch.inference_mode(), tf32(False):
+        whole_img = vae.decode(z)
+        unsharded = {
+            "decode_ms": wall_ms(lambda: vae.decode(z), 5, [dev]),
+            "encode_ms": wall_ms(lambda: vae.encode_moments(whole_img), 5,
+                                 [dev]),
+            "decode_peak_gib": peak_gib(lambda: vae.decode(z), dev),
+            "encode_peak_gib": peak_gib(
+                lambda: vae.encode_moments(whole_img), dev)}
+        for name, mesh in meshes.items():
+            devices = sorted(set(mesh), key=str)
+            img = decode(mesh, z)
+            require(img.shape == (BATCH, spec.vae.out_ch, f * w, f * h),
+                    f"{name}: decoded shape {tuple(img.shape)}")
+            moments = encode(mesh, img)
+            require(moments.shape == (BATCH, 2 * spec.vae.z_channels, w, h),
+                    f"{name}: moments shape {tuple(moments.shape)}")
+            gaps = {"decode_rel": rel_gap(img, whole_img),
+                    "encode_rel": rel_gap(moments, vae.encode_moments(img))}
+            for key, gap in gaps.items():
+                require(gap <= SPATIAL_TOL, f"{name}: sharded {key} {gap} "
+                                            f"> {SPATIAL_TOL}")
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                gaps["bf16_decode_rel"] = rel_gap(decode(mesh, z),
+                                                  vae.decode(z))
+                gaps["bf16_encode_rel"] = rel_gap(
+                    encode(mesh, img), vae.encode_moments(img))
+            flagship[name] = dict(
+                gaps, decode_ms=wall_ms(lambda: decode(mesh, z), 5, devices),
+                encode_ms=wall_ms(lambda: encode(mesh, img), 5, devices),
+                decode_peak_gib=peak_gib(lambda: decode(mesh, z), dev),
+                encode_peak_gib=peak_gib(lambda: encode(mesh, img), dev))
+        del whole_img, img, moments
+
+        # (b) the Waymo-scale decode at batch 1
+        mesh = meshes[f"cuda:0 x{SPATIAL_SHARDS}"]
+        hw, ww = WAYMO_LATENT
+        zw = torch.randn((1, spec.vae.z_channels, ww, hw), generator=gen,
+                         device=dev)
+        img = decode(mesh, zw)
+        require(img.shape == (1, spec.vae.out_ch, f * ww, f * hw),
+                f"waymo: decoded shape {tuple(img.shape)}")
+        waymo = {"decode_rel": rel_gap(img, vae.decode(zw)),
+                 "decode_ms": wall_ms(lambda: decode(mesh, zw), 3, [dev]),
+                 "unsharded_decode_ms": wall_ms(lambda: vae.decode(zw), 3,
+                                                [dev]),
+                 "decode_peak_gib": peak_gib(lambda: decode(mesh, zw), dev),
+                 "unsharded_decode_peak_gib": peak_gib(
+                     lambda: vae.decode(zw), dev)}
+        require(waymo["decode_rel"] <= SPATIAL_TOL,
+                f"waymo: sharded decode {waymo['decode_rel']} > "
+                f"{SPATIAL_TOL}")
+        del img
+
+    # (c) the research modules, card against CPU, f32
+    cfg = sliced.SlicedConfig()
+    torch.manual_seed(SEED)
+    research = {
+        "sliced_encoder": (sliced.SlicedEncoder(cfg),
+                           (torch.randn(BATCH, cfg.in_channels, 1024,
+                                        cfg.resolution),)),
+        "sliced_decoder": (sliced.SlicedDecoder(cfg),
+                           (torch.randn(BATCH, cfg.z_channels,
+                                        1024 // 2 ** (len(cfg.ch_mult) - 1),
+                                        cfg.resolution
+                                        // 2 ** (len(cfg.ch_mult) - 1)),)),
+        "edge_conv_resnet_block": (
+            experimental.EdgeConvResnetBlock(
+                EDGE_SHAPE[1], EDGE_SHAPE[1], azi=2 * np.pi / EDGE_SHAPE[2],
+                inc=np.radians(26.9) / EDGE_SHAPE[3]),
+            (torch.randn(EDGE_SHAPE),
+             torch.rand(EDGE_SHAPE[0], 1, *EDGE_SHAPE[2:]) * 78 + 2))}
+    modules = {}
+    for name, (module, inputs) in research.items():
+        module.eval()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            want = module(*inputs)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            module.to(dev)
+            card = tuple(x.to(dev) for x in inputs)
+            with tf32(False):
+                got = module(*card)
+                gap = rel_gap(got, want)
+                ms = cuda_ms(lambda: module(*card), 5)
+        require(got.shape == want.shape, f"{name}: {tuple(got.shape)}")
+        require(gap <= SPATIAL_TOL, f"{name}: card against CPU {gap} > "
+                                    f"{SPATIAL_TOL}")
+        modules[name] = dict(shape=list(got.shape), card_vs_cpu_rel=gap,
+                             ms=ms, cpu_ms=cpu_ms)
+        module.cpu()
+
+    # (d) the profiling hooks around one flagship DDIM step, bf16
+    torch.manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pipeline")
+        save_diffusers_pipeline(path, models.UNet2D(spec.unet), vae,
+                                dataclasses.asdict(spec.schedule))
+        pipe = sample_ldm.load_diffusers_pipeline(path)
+        sample = sample_ldm.build_sampler(pipe, BATCH, 1)
+        sample(sample_ldm.batch_generator(dev, SEED, 0))      # warm-up
+        torch.cuda.synchronize()
+        trace_dir = os.path.join(tmp, "trace")
+        kernels.reset_launches()
+        with maybe_trace(trace_dir, enabled=True):
+            with step_annotation("ddim_step"):
+                images = sample(sample_ldm.batch_generator(dev, SEED, 0))
+            torch.cuda.synchronize()
+        launches = kernels.LAUNCHES["attention_fwd"]
+        breakdown = trace_op_breakdown(trace_dir)
+    require(bool(torch.isfinite(images).all()), "ddim step: not finite")
+    require(launches == 16, f"ddim step: {launches} forward launches")
+    require(breakdown["plane"].startswith("/device:cuda"),
+            f"trace plane {breakdown['plane']}")
+    require(breakdown["groups"]["attention_fwd"] > 0,
+            "trace: no attention_fwd time")
+    require(breakdown["events"]["attention_fwd"] == launches,
+            f"trace: {breakdown['events']['attention_fwd']} attention_fwd "
+            f"kernels, the counter {launches}")
+    memory = device_memory_stats()
+    require(memory.get("cuda:0", {}).get("name")
+            == torch.cuda.get_device_name(0), f"memory stats {memory}")
+    emit("spatial", card=smi, shards=SPATIAL_SHARDS, batch=BATCH,
+         tol=SPATIAL_TOL, flagship_unsharded=unsharded, flagship=flagship,
+         waymo=waymo, research=modules,
+         trace={"launches": launches, **breakdown},
+         memory=memory["cuda:0"], seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 # -- phase ddp: data parallelism over torch.distributed --------------------
@@ -2449,6 +2684,7 @@ def main() -> int:
         launches["attention_fwd"] += phase_eval(kernels, models,
                                                 samples_root, smi)
     phase_t64(models, smi)
+    launches["attention_fwd"] += phase_spatial(kernels, models, smi)
     launches["attention_fwd"] += (trained["attention_fwd"]
                                   + cond_trained["attention_fwd"]
                                   + cli["attention_fwd"])

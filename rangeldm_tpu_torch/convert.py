@@ -6,6 +6,8 @@
 * `unet_state_dict_from_jax` / `vae_state_dict_from_jax`: the JAX package's
   params trees (numpy leaves) -> this package's state dicts, following the
   key grammar of rangeldm_tpu/convert/export.py;
+  `sliced_state_dict_from_jax` / `experimental_state_dict_from_jax`: the
+  research modules (models/sliced.py, models/experimental.py);
   `rangenet_state_dicts_from_jax`: the JAX RangeNet's variables -> the
   released RangeNet++ state dicts; `vae_gan_state_from_jax`: the JAX VAE
   trainer's state -> the VAE's, the discriminator's and the EMA's state
@@ -129,6 +131,12 @@ def load_torch_state_dict(path: str) -> StateDict:
 # JAX params trees -> state dicts
 # ---------------------------------------------------------------------------
 
+# JAX kernel -> torch weight: Dense (I, O); a sliced conv's grouped 1D
+# kernel (k, I/groups, O); a conv HWIO (k_beam, k_azimuth, I, O); PerRowConv's
+# (rows, k_beam, k_azimuth, I, O) -> (rows, O, I, k_azimuth, k_beam)
+_KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 1, 0), 5: (0, 4, 3, 2, 1)}
+
+
 def _flatten(tree: Dict, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -143,10 +151,10 @@ def _from_jax(params: Dict, rename) -> StateDict:
     out = {}
     for path, leaf in _flatten(params):
         *mods, leaf_name = path
-        prefix = rename(".".join(mods)) + "." if mods else ""
+        key = rename(".".join(mods))
+        prefix = key + "." if key else ""
         if leaf_name == "kernel":
-            w = (leaf.transpose(3, 2, 1, 0) if leaf.ndim == 4
-                 else leaf.transpose(1, 0))
+            w = leaf.transpose(_KERNEL_AXES[leaf.ndim])
             out[prefix + "weight"] = torch.from_numpy(np.array(w, order="C"))
         elif leaf_name in ("scale", "bias"):
             suffix = "weight" if leaf_name == "scale" else "bias"
@@ -176,6 +184,26 @@ def unet_state_dict_from_jax(params: Dict) -> StateDict:
 def vae_state_dict_from_jax(params: Dict) -> StateDict:
     """The JAX AutoencoderKL params tree -> this package's state dict."""
     return _from_jax(params, _vae_key)
+
+
+def sliced_state_dict_from_jax(params: Dict) -> StateDict:
+    """The JAX SlicedEncoder / SlicedDecoder params tree -> the state dict
+    of models/sliced.py: the sgm key grammar, and each sliced conv's kernel
+    as its Conv1d's weight under `.conv`."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    sliced = {".".join(path[:-1]) for path, leaf in _flatten(params)
+              if path[-1] == "kernel" and leaf.ndim == 3}
+    return _from_jax(params, lambda key: (
+        f"{_vae_key(key)}.conv".lstrip(".") if key in sliced
+        else _vae_key(key)))
+
+
+def experimental_state_dict_from_jax(params: Dict) -> StateDict:
+    """The params tree of a JAX module of models/experimental.py -> the
+    port's state dict (EdgeConv's mlp_0 / mlp_2 -> mlp.0 / mlp.2)."""
+    return _from_jax(params, lambda key: re.sub(r"mlp_(\d+)", r"mlp.\1",
+                                                key))
 
 
 def _disc_key(key: str) -> str:

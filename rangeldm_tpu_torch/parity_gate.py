@@ -47,7 +47,8 @@ PUBLISHED = {
 
 def load_gate_pipeline(path: str, dtype: torch.dtype, device) -> dict:
     """A released (diffusers-layout) pipeline directory. A native orbax
-    pipeline directory of the JAX package is refused by name."""
+    pipeline directory of the JAX package is refused by name, with the tool
+    that exports it."""
     from rangeldm_tpu_torch.sample_ldm import (
         is_diffusers_pipeline, load_diffusers_pipeline,
     )
@@ -56,9 +57,10 @@ def load_gate_pipeline(path: str, dtype: torch.dtype, device) -> dict:
     if not is_diffusers_pipeline(path):
         raise ValueError(
             f"--weights {path} is not a diffusers-layout pipeline directory "
-            f"(unet/diffusion_pytorch_model.*); native orbax pipeline "
-            f"directories written by the JAX package are not read by this "
-            f"package (ROADMAP.md Queue 1, native orbax directories)")
+            f"(unet/diffusion_pytorch_model.*); a native orbax pipeline "
+            f"directory written by the JAX package is read after "
+            f"`python tools/export_pipeline.py {path} <out_dir>` on a "
+            f"machine with JAX")
     return load_diffusers_pipeline(path, dtype=dtype, device=device)
 
 

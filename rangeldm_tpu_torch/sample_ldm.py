@@ -82,7 +82,9 @@ def load_diffusers_pipeline(path: str, dtype: torch.dtype = torch.bfloat16,
     an explicit `pos_encoding` wins over the record."""
     if not is_diffusers_pipeline(path):
         raise ValueError(f"{path} is not a diffusers-layout pipeline "
-                         f"directory (unet/{WEIGHT_FILES[0]})")
+                         f"directory (unet/{WEIGHT_FILES[0]}); an orbax "
+                         f"pipeline of the JAX package is exported with "
+                         f"tools/export_pipeline.py first")
     device = resolve_device(device)
     which = "unet_ema" if use_ema and os.path.isdir(
         os.path.join(path, "unet_ema")) else "unet"

@@ -52,8 +52,11 @@ conditional model's grids are written by every rank, with the suffix
 _p{rank}. A SIGUSR1 to any rank checkpoints: the ranks agree on it at
 the next step boundary.
 
-Not ported yet: reading orbax checkpoints, and the TensorBoard and wandb
-sinks.
+Orbax directories of the JAX package are not read: a pipeline directory
+is exported first (`python tools/export_pipeline.py`, on a machine with
+JAX), and a training checkpoint cannot be resumed here, since its JAX PRNG
+key has no torch.Generator counterpart. Not ported: the TensorBoard and
+wandb sinks.
 """
 
 from __future__ import annotations
@@ -137,7 +140,8 @@ def load_vae(path: str, cfg: Optional[VaeConfig] = None) -> AutoencoderKL:
     `.safetensors` (the VAE trainer's vae_sgm.safetensors), with the
     shapes read off the file and the other fields of `cfg`; or a
     diffusers-layout VAE directory, or a pipeline directory holding one
-    under vae/. Orbax directories are not read."""
+    under vae/. An orbax pipeline directory of the JAX package is read
+    after tools/export_pipeline.py has exported it."""
     if path.endswith((".ckpt", ".safetensors")):
         return load_sgm_vae(path, cfg)
     vae_dir = path if os.path.exists(os.path.join(path, "config.json")) \
@@ -145,8 +149,9 @@ def load_vae(path: str, cfg: Optional[VaeConfig] = None) -> AutoencoderKL:
     if not os.path.isdir(vae_dir):
         raise ValueError(f"vae_checkpoint {path!r}: expected an sgm .ckpt "
                          f"or .safetensors file, or a diffusers-layout VAE "
-                         f"or pipeline directory (orbax directories are "
-                         f"not read by this package)")
+                         f"or pipeline directory (orbax directories of the "
+                         f"JAX package are not read; export a JAX pipeline "
+                         f"directory with tools/export_pipeline.py)")
     cfg, sd = load_diffusers_vae(vae_dir)
     vae = AutoencoderKL(cfg)
     vae.load_state_dict(sd, strict=True)

@@ -12,7 +12,8 @@ step_prefix naming, which `LdmTrainer.resume` also accepts) holding
 No pickle is read or written. Each checkpoint is written into a sibling
 temporary directory, synced and renamed into place, so a crash never
 leaves a half-written `checkpoint_{step}`. The orbax checkpoints of the JAX
-package are not read.
+package are not resumed: a JAX PRNG key has no torch.Generator
+counterpart (tools/export_pipeline.py exports a JAX pipeline's weights).
 
 In a distributed run (parallel/mesh.py) rank 0 writes and `save` returns
 on every rank once the checkpoint is in place, as the JAX package's save
@@ -133,8 +134,11 @@ class TrainCheckpointer:
         if TENSORS not in files or SCALARS not in files:
             raise ValueError(
                 f"{path} holds {sorted(files)}, not {TENSORS} and {SCALARS}: "
-                f"orbax checkpoints written by the JAX package are not read "
-                f"by this package")
+                f"orbax checkpoints written by the JAX package are not "
+                f"resumed by this package (a JAX PRNG key has no "
+                f"torch.Generator counterpart, so the run could not equal "
+                f"JAX's); tools/export_pipeline.py exports the weights of a "
+                f"JAX pipeline directory")
         with open(os.path.join(path, SCALARS)) as f:
             sd: Dict[str, Any] = json.load(f)
         sd.update(read_safetensors(os.path.join(path, TENSORS)))

@@ -1,4 +1,15 @@
-"""Where the time of a training step goes on the card, from torch.profiler.
+"""Profiling hooks, and where the time of a training step goes on the card.
+
+The JAX package's hooks (rangeldm_tpu/utils/profiling.py) on
+torch.profiler:
+
+    with maybe_trace("runs/x/trace", enabled=cfg.get("profile")):
+        with step_annotation("vae_encode"):
+            ...
+    trace_op_breakdown("runs/x/trace", {"attention": ("attention",)})
+    device_memory_stats()
+
+The step profile:
 
     python -m rangeldm_tpu_torch.utils.profiling [--model rangedm_kitti360
                                                   --batch 8]
@@ -18,16 +29,22 @@ by kernel name. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import glob
 import json
+import os
 import re
 import subprocess
 import tempfile
 import time
 from collections import defaultdict
+from typing import Optional
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import (
+    ProfilerActivity, profile, record_function, tensorboard_trace_handler,
+)
 
 WARMUP, STEPS, TOP = 3, 5, 20
 # kernel-name patterns, first match wins
@@ -43,6 +60,117 @@ GROUPS = [
     ("reduction", r"reduce|Reduce"),
     ("copy", r"copy|Memcpy|Memset|cat|CatArray"),
 ]
+
+
+@contextlib.contextmanager
+def maybe_trace(log_dir: Optional[str], enabled: bool = False):
+    """A torch.profiler trace of the block, the host's operators and, where
+    there is a card, its kernels, written under `log_dir` as a Chrome trace
+    (`<worker>.<ms>.pt.trace.json`: plain JSON, no TensorBoard package
+    needed). Nothing when disabled or without a directory."""
+    if not enabled or not log_dir:
+        yield
+        return
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+def step_annotation(name: str):
+    """A named range in the trace."""
+    return record_function(name)
+
+
+# Chrome-trace categories of the device's work
+_DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _outermost(events: list) -> list:
+    """The events of a host trace not nested in another on their thread,
+    so that their durations add up without counting a child twice."""
+    out, ends = [], {}
+    for e in sorted(events, key=lambda e: (e["ts"], -e["dur"])):
+        key = (e.get("pid"), e.get("tid"))
+        if e["ts"] >= ends.get(key, float("-inf")):
+            out.append(e)
+            ends[key] = e["ts"] + e["dur"]
+    return out
+
+
+def trace_op_breakdown(trace_dir: str, groups: Optional[dict] = None
+                       ) -> dict:
+    """The newest trace `maybe_trace` wrote under `trace_dir`, as time by op
+    group: {"plane", "total_ms", "groups": {g: ms}, "events": {g: count},
+    "top_ops": [[name, ms], ...]}.
+
+    groups: {group: (name substring, ...)}; an op whose name holds one of
+    the substrings (case-insensitive) counts in that group, the first
+    matching group only. Without it, the groups of `GROUPS` and "other"
+    (`group_of`), as the step profile sorts. The device's kernels, copies
+    and sets where the
+    trace has any (plane "/device:cuda:<index>"), else the host's outermost
+    operators (plane "/host:cpu"), as the JAX package falls back to its
+    host plane: fine for tests, not for claims."""
+    paths = sorted(glob.glob(os.path.join(trace_dir, "**", "*.json"),
+                             recursive=True), key=os.path.getmtime)
+    if not paths:
+        raise FileNotFoundError(f"no trace .json under {trace_dir}")
+    with open(paths[-1]) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in _DEVICE_CATEGORIES]
+    if device:
+        plane = f"/device:cuda:{device[0].get('args', {}).get('device', 0)}"
+    else:
+        device = _outermost([e for e in events if e.get("cat") == "cpu_op"])
+        plane = "/host:cpu"
+    if not device:
+        raise ValueError(f"no device or host operator in {paths[-1]}")
+    per_op, counts = defaultdict(float), defaultdict(int)
+    for e in device:
+        per_op[e["name"]] += e["dur"] / 1e3
+        counts[e["name"]] += 1
+    if groups is None:
+        names, group = [g for g, _ in GROUPS] + ["other"], group_of
+    else:
+        names = list(groups)
+
+        def group(name: str) -> Optional[str]:
+            low = name.lower()
+            return next((g for g, subs in groups.items()
+                         if any(sub.lower() in low for sub in subs)), None)
+    out_groups, out_events = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for name, ms in per_op.items():
+        g = group(name)
+        if g is not None:
+            out_groups[g] += ms
+            out_events[g] += counts[name]
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:10]
+    return {"plane": plane, "total_ms": round(sum(per_op.values()), 3),
+            "groups": {g: round(v, 3) for g, v in out_groups.items()},
+            "events": out_events,
+            "top_ops": [[n, round(ms, 3)] for n, ms in top]}
+
+
+def device_memory_stats() -> dict:
+    """For each visible card, {"cuda:<i>": {"name", "bytes_in_use",
+    "bytes_limit", "peak_bytes_in_use"}}: the caching allocator's bytes in
+    use and their peak, and the card's memory; {} without a card."""
+    if not torch.cuda.is_available():
+        return {}
+    out = {}
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        out[f"cuda:{i}"] = {
+            "name": torch.cuda.get_device_name(i),
+            "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+            "bytes_limit": torch.cuda.mem_get_info(i)[1],
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0)}
+    return out
 
 
 def group_of(name: str) -> str:

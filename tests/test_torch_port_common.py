@@ -55,6 +55,33 @@ def perturb(params, seed: int, scale: float = 0.05):
                    .astype(np.float32)), params)
 
 
+def numpy_params(module, *inputs, seed: int = 0):
+    """Params of a flax `module` on `inputs`, drawn with numpy from `seed`
+    in the tree and shapes `module.init` would give (traced, not run):
+    kernels of standard deviation 1/sqrt(fan-in), norm scales near 1,
+    biases near 0."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *inputs)
+
+    def draw(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            fan_in = np.prod(shape[1:-1] if len(shape) == 5 else shape[:-1])
+            return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+                np.float32)
+        base = 1.0 if name == "scale" else 0.0
+        return (base + 0.05 * rng.standard_normal(shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def jit_apply(module):
+    """`module.apply` compiled at XLA's lowest backend optimization level,
+    which about halves the compile of a small network on the CPU."""
+    return jax.jit(module.apply, compiler_options={
+        "xla_backend_optimization_level": 0})
+
+
 def jax_unet_params(seed: int = 0, **overrides):
     """(JAX UNetConfig, params tree) of the tiny flagship-grammar UNet."""
     cfg = JaxUNetConfig(**{**TINY_UNET, **overrides})

@@ -556,3 +556,57 @@ def test_a_world_of_one_over_nccl_takes_the_plain_step(tmp_path):
                                   LDM_CFG["learning_rate"],
                                   optimizer="adam",
                                   betas=(0.95, 0.999)) == []
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+def test_sharded_vae_on_the_card_matches_the_cpu(shards):
+    """The azimuth-sharded decode and encode on a mesh that repeats cuda:0,
+    against the unsharded VAE on the CPU: a (1, 2, 4) VAE of 32 channels,
+    a 16 x 64 latent at batch 2."""
+    from chip_smoke import SPATIAL_TOL, rel_gap
+    from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
+    from rangeldm_tpu_torch.parallel.sharded_vae import (
+        sharded_vae_decode, sharded_vae_encode,
+    )
+    from rangeldm_tpu_torch.parallel.spatial import (
+        gather_azimuth, shard_azimuth,
+    )
+    torch.manual_seed(0)
+    vae = AutoencoderKL(VaeConfig(ch=32, ch_mult=(1, 2, 4))).eval()
+    g = torch.Generator().manual_seed(1)
+    z = torch.randn(2, 4, 64, 16, generator=g)
+    mesh = (torch.device("cuda", 0),) * shards
+    with torch.inference_mode():
+        want_img = vae.decode(z)
+        card = vae.cuda()
+        img = sharded_vae_decode(card, shard_azimuth(z.cuda(), mesh))
+        moments = gather_azimuth(sharded_vae_encode(card, img), "cuda")
+        img = gather_azimuth(img, "cuda")
+        # the unsharded encode of what the sharded decode gave
+        want_m = vae.cpu().encode_moments(img.cpu())
+    assert img.shape == (2, 2, 256, 64) and moments.shape == (2, 8, 64, 16)
+    assert rel_gap(img, want_img) <= SPATIAL_TOL
+    assert rel_gap(moments, want_m) <= SPATIAL_TOL
+
+
+@pytest.mark.parametrize("name", ["encoder", "decoder", "edge_block"])
+def test_sliced_and_experimental_modules_on_the_card_match_the_cpu(name):
+    from chip_smoke import SPATIAL_TOL, rel_gap
+    from rangeldm_tpu_torch.models import experimental, sliced
+    torch.manual_seed(2)
+    cfg = sliced.SlicedConfig(ch=32, resolution=16)
+    g = torch.Generator().manual_seed(3)
+    module, inputs = {
+        "encoder": (sliced.SlicedEncoder(cfg),
+                    (torch.randn(2, 2, 128, 16, generator=g),)),
+        "decoder": (sliced.SlicedDecoder(cfg),
+                    (torch.randn(2, 4, 32, 4, generator=g),)),
+        "edge_block": (experimental.EdgeConvResnetBlock(32, 64, 0.05, 0.01),
+                       (torch.randn(2, 32, 64, 16, generator=g),
+                        torch.rand(2, 1, 64, 16, generator=g) * 78 + 2)),
+    }[name]
+    with torch.inference_mode():
+        want = module.eval()(*inputs)
+        got = module.cuda()(*(x.cuda() for x in inputs))
+    assert got.shape == want.shape
+    assert rel_gap(got, want) <= SPATIAL_TOL

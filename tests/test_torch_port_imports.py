@@ -55,7 +55,8 @@ def test_scan_sees_the_whole_package():
             "mmd.py", "jsd.py", "frd.py", "rangenet.py", "knn.py",
             "frd_pipeline.py", "chamfer.py", "precision.py",
             "discriminator.py", "lpips.py", "vae_trainer.py", "train_vae.py",
-            "eval_vae.py", "mesh.py"} <= names
+            "eval_vae.py", "mesh.py", "spatial.py", "sharded_vae.py",
+            "sliced.py", "experimental.py", "profiling.py"} <= names
     assert (ROOT / "rangeldm_tpu_torch" / "native" / "__init__.py") in set(
         _sources())
 
@@ -80,7 +81,7 @@ def test_importing_every_module_loads_no_jax():
         "print(len(mods))\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 59
+    assert int(proc.stdout.split()[-1]) >= 63
 
 
 def test_conditional_sampling_cli_starts_as_a_module():
@@ -132,6 +133,34 @@ def test_instantiate_maps_jax_targets_without_importing_jax():
         "NLayerDiscriminatorMetaKernel', 'params': {'ndf': 8}})\n"
         "assert type(m).__module__ == 'rangeldm_tpu_torch.models."
         "discriminator', type(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_new_modules_load_no_jax():
+    """The spatial parallelism, the research modules, the profiling hooks
+    and the converters of this slice, each imported alone."""
+    code = (
+        "import sys\n"
+        "from rangeldm_tpu_torch.parallel.spatial import (\n"
+        "    shard_azimuth, gather_azimuth, halo_exchange_w,\n"
+        "    halo_conv_local, sharded_circular_conv2d)\n"
+        "from rangeldm_tpu_torch.parallel.sharded_vae import (\n"
+        "    sharded_vae_decode, sharded_vae_encode)\n"
+        "from rangeldm_tpu_torch.models.sliced import (\n"
+        "    SlicedConv, SlicedDownsample, SlicedUpsample,\n"
+        "    SlicedResnetBlock, SlicedConfig, SlicedEncoder, SlicedDecoder)\n"
+        "from rangeldm_tpu_torch.models.experimental import (\n"
+        "    EdgeConv, EdgeConvResnetBlock, range_downsample, PerRowConv,\n"
+        "    SparseRangeImageEncoder)\n"
+        "from rangeldm_tpu_torch.utils.profiling import (\n"
+        "    maybe_trace, step_annotation, trace_op_breakdown,\n"
+        "    device_memory_stats)\n"
+        "from rangeldm_tpu_torch.convert import (\n"
+        "    sliced_state_dict_from_jax, experimental_state_dict_from_jax)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n")
