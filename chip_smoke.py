@@ -92,6 +92,17 @@ Phases, each printing one JSON line:
                  an EdgeConvResnetBlock card against CPU; maybe_trace and
                  step_annotation around one flagship DDIM step, read back by
                  trace_op_breakdown, and device_memory_stats
+  13. projection - the tensor projection (`geometry.range_image`) on the
+                 card: batches of 8 synthetic 120,000-point scans padded to
+                 131,072 for the kitti, ring (nuScenes, with points under
+                 its 2 m min_depth) and uniform row modes, against the numpy
+                 path and the C++ core scan by scan (tests/test_geometry.py's
+                 per-image bounds), the batch bit-equal to the scans one at
+                 a time and to a second call; ms per scan at batch 8 by CUDA
+                 events, the host-to-card copy apart, peak memory, beside
+                 the C++ core's and numpy's ms per scan; no attention kernel
+                 on this path. Phase 9 also reads its runs' TensorBoard
+                 event files back (the port's reader) against their jsonl
 Then the kernel summary line, the card line, and the result line. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
@@ -181,6 +192,17 @@ SPATIAL_SHARDS = 4             # phase spatial: azimuth shards of cuda:0
 SPATIAL_LATENT = (16, 256)     # (beams, azimuth) of the flagship latent
 WAYMO_LATENT = (16, 664)       # decoded to 64 x 2656 (ldm/inference.py:169)
 EDGE_SHAPE = (1, 64, 1024, 64)  # one EdgeConvResnetBlock's input (B, C, W, H)
+PROJ_BATCH = 8                 # phase projection: scans of one batch on the
+PROJ_POINTS = 131_072          # card, each SCAN_POINTS padded to this buffer
+PROJ_SENSORS = ("kitti360", "nuscenes", "kitti360_vanilla")  # kitti, ring,
+PROJ_NEAR = 512                # uniform rows; nuScenes scans get points at
+#                                0.5 m, under its 2 m min_depth
+# the card's projection against numpy's and the C++ core's, per image: a
+# point whose azimuth lies within an ulp of a column edge may land in the
+# next column when atan2 differs in the last ulp, which moves a pixel and
+# its one-pixel fills (tests/test_geometry.py:70-75, the JAX package's own
+# bounds: values, mask pixels, car-window pixels)
+PROJ_BOUNDS = (16, 8, 8)
 SPATIAL_TOL = 1e-4             # f32, TF32 off, of the output's scale: the
 # sharded VAE against the unsharded one, and the sliced and EdgeConv modules
 # on the card against the CPU. cuDNN picks other f32 algorithms at a shard's
@@ -956,6 +978,28 @@ def read_log(out_dir: str) -> list:
         return [json.loads(line) for line in f]
 
 
+def tb_matches_log(out_dir: str, files: int) -> dict:
+    """<out_dir>/tb, read back with the port's framing and CRC checks (the
+    card's machine has no tensorboard package), holds `files` event files
+    whose scalars equal train_log.jsonl's rows: tags, steps and float32
+    values."""
+    from rangeldm_tpu_torch.training.event_file import (
+        event_files, read_scalars,
+    )
+    tb = os.path.join(out_dir, "tb")
+    paths = event_files(tb)
+    require(len(paths) == files, f"{tb} holds {len(paths)} event files, "
+            f"expected {files}")
+    want = [(r["step"], k, float(np.float32(v))) for r in read_log(out_dir)
+            for k, v in r.items() if k != "step"]
+    got = read_scalars(tb)
+    require(got == want and len(want) > 0,
+            f"{tb}: {len(got)} scalars differ from the jsonl's {len(want)}: "
+            f"{[(g, w) for g, w in zip(got, want) if g != w][:3]}")
+    return dict(files=len(paths), scalars=len(got),
+                bytes=sum(os.path.getsize(p) for p in paths))
+
+
 def state_equal(a: dict, b: dict) -> list:
     """The keys on which two TrainState.state_dict()s differ."""
     if a.keys() != b.keys():
@@ -1137,6 +1181,9 @@ def phase_train_cli(kernels, data_root: str, smi) -> dict:
                 f"run B logged steps {[r['step'] for r in log_b]}")
         require(all(np.isfinite(r["loss"]) for r in log_b),
                 f"non-finite loss: {log_b}")
+        # the default TensorBoard sink: one event file a run, equal to the
+        # jsonl rows of both runs
+        fields["tensorboard"] = tb_matches_log(out, 2)
         pipe_dir = os.path.join(out, "pipeline")
         with open(os.path.join(pipe_dir, "model_index.json")) as f:
             record = json.load(f)
@@ -1207,6 +1254,7 @@ def phase_train_cli(kernels, data_root: str, smi) -> dict:
         require([r["step"] for r in log_l] == list(range(1, CACHE_STEPS + 1))
                 and all(np.isfinite(r["loss"]) for r in log_l),
                 f"cache_latents run logged {log_l}")
+        fields["tensorboard_cache_run"] = tb_matches_log(out_l, 1)
         npy = os.path.join(out_l, "latent_moments.npy")
         with open(npy + ".json") as f:
             meta = json.load(f)
@@ -2614,6 +2662,119 @@ def threaded_projection_ms(scans, spec, team: str) -> float:
         return (time.perf_counter() - t0) / len(work) * 1e3
 
 
+def synthetic_ring_scan(rng, n: int, n_beams: int = 32) -> np.ndarray:
+    """A nuScenes-like (N + PROJ_NEAR, 5) scan: `synthetic_scan` with a ring
+    column, after PROJ_NEAR points at 0.5 m that would win their pixels
+    without the 2 m min_depth."""
+    pc = synthetic_scan(rng, n)
+    pc = np.concatenate([pc, rng.integers(0, n_beams, (n, 1)).astype(
+        np.float32)], axis=1)
+    near = pc[:PROJ_NEAR].copy()
+    near[:, :3] *= 0.5 / np.linalg.norm(near[:, :3], axis=1, keepdims=True)
+    return np.concatenate([near, pc])
+
+
+def phase_projection(smi, device: str = "cuda:0") -> dict:
+    """The tensor projection on the card, for each of PROJ_SENSORS: a batch
+    of PROJ_BATCH scans through `range_image` on `device`, against
+    `range_image_np` and the C++ core scan by scan (mismatched values, mask
+    and car-window pixels within PROJ_BOUNDS), the batch bit-equal to the
+    scans one at a time and to a second call, nothing under min_depth
+    winning; then its ms per scan at batch 8 (CUDA events), the host-to-card
+    copy of the padded points apart, peak memory and the least time of the
+    bytes it must move, beside the C++ core's and numpy's ms per scan on
+    the host."""
+    from rangeldm_tpu_torch.geometry import (
+        get_spec, pad_points, project, range_image, range_image_np,
+    )
+    from rangeldm_tpu_torch.native import range_image_native
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    out = {}
+    for k, name in enumerate(PROJ_SENSORS):
+        spec = get_spec(name)
+        rng = np.random.default_rng(SEED + k)
+        ring = spec.row_mode == "ring"
+        scans = [synthetic_ring_scan(rng, SCAN_POINTS) if ring
+                 else synthetic_scan(rng, SCAN_POINTS)
+                 for _ in range(PROJ_BATCH)]
+        padded = [pad_points(pc, PROJ_POINTS) for pc in scans]
+        pts_host = torch.from_numpy(np.stack([p for p, _ in padded]))
+        valid_host = torch.from_numpy(np.stack([v for _, v in padded]))
+        pts, valid = pts_host.to(dev), valid_host.to(dev)
+
+        got = range_image(pts, valid, spec)
+        again = range_image(pts, valid, spec)
+        torch.cuda.synchronize()
+        require(all(t.device == pts.device for t in got),
+                f"{name}: the image left the card")
+        require(got[0].shape == (PROJ_BATCH, spec.n_beams, spec.width, 2),
+                f"{name}: image {tuple(got[0].shape)}")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{name}: two calls differ")
+        for i in range(PROJ_BATCH):
+            one = range_image(pts[i], valid[i], spec)
+            require(all(torch.equal(a[i], b) for a, b in zip(got, one)),
+                    f"{name}: scan {i} of the batch differs from it alone")
+        if spec.min_depth > 0:
+            raw = project(pts, valid, spec)
+            hit = raw[..., 0] > 0
+            require(bool(hit.any()) and float(raw[..., 0][hit].min())
+                    > spec.min_depth, f"{name}: a point under min_depth won")
+
+        card = [t.cpu().numpy() for t in got]
+        timed, counts = {}, {}
+        for ref, fn in (("numpy", range_image_np),
+                        ("native", range_image_native)):
+            fn(scans[0], spec)                               # build, warm
+            t0 = time.perf_counter()
+            refs = [fn(pc, spec) for pc in scans]
+            timed[f"{ref}_ms_per_scan"] = ((time.perf_counter() - t0)
+                                           / PROJ_BATCH * 1e3)
+            per_scan = []
+            for i, (img, mask, cw) in enumerate(refs):
+                c = (int((~np.isclose(card[0][i], img, rtol=1e-5,
+                                      atol=1e-5)).sum()),
+                     int((card[1][i] != mask).sum()),
+                     int((card[2][i] != cw).sum()))
+                require(all(x <= b for x, b in zip(c, PROJ_BOUNDS)),
+                        f"{name} scan {i} against {ref}: (values, mask, "
+                        f"car window) mismatches {c} above {PROJ_BOUNDS}")
+                per_scan.append(c)
+            counts[ref] = dict(
+                max_per_scan=[max(c[j] for c in per_scan) for j in range(3)],
+                total=[sum(c[j] for c in per_scan) for j in range(3)])
+
+        iters = 20
+        batch_ms = cuda_ms(lambda: range_image(pts, valid, spec), iters)
+        copy_ms = cuda_ms(lambda: (pts_host.to(dev), valid_host.to(dev)),
+                          iters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        range_image(pts, valid, spec)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        # each input read once (points, validity), each output written once
+        # (the image, the mask and the car window)
+        nbytes = (pts.numel() * 4 + valid.numel()
+                  + got[0].numel() * 4 + got[1].numel() + got[2].numel())
+        out[name] = dict(
+            row_mode=spec.row_mode, batch=PROJ_BATCH, points=SCAN_POINTS,
+            padded_to=PROJ_POINTS, card_ms_per_scan=batch_ms / PROJ_BATCH,
+            card_batch_ms=batch_ms, copy_ms_per_scan=copy_ms / PROJ_BATCH,
+            copy_bytes=pts.numel() * 4 + valid.numel(),
+            bound_ms_per_scan=nbytes / PEAK_BYTES * 1e3 / PROJ_BATCH,
+            peak_memory_gib_above_inputs=peak / 2 ** 30,
+            mask_pixels_per_scan=float(card[1].sum() / PROJ_BATCH),
+            mismatches=counts, host_cpus=os.cpu_count(), **timed)
+        del pts, valid, got, again
+    emit("projection", card=smi, bounds=PROJ_BOUNDS,
+         seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
 def summary(rows, launches):
     """One entry per kernel, over the attention layers of one flagship UNet
     in bf16 at the batch of the path that carries it most: the forward at
@@ -2685,6 +2846,12 @@ def main() -> int:
                                                 samples_root, smi)
     phase_t64(models, smi)
     launches["attention_fwd"] += phase_spatial(kernels, models, smi)
+    kernels.reset_launches()
+    phase_projection(smi)
+    torch.cuda.synchronize()
+    require(not any(kernels.LAUNCHES.values()),
+            f"the projection launched {kernels.LAUNCHES}: its path holds no "
+            f"attention")
     launches["attention_fwd"] += (trained["attention_fwd"]
                                   + cond_trained["attention_fwd"]
                                   + cli["attention_fwd"])

@@ -1,15 +1,16 @@
-"""KITTI calibration and poses, and the semantic-kitti LaserScan projection
-(ldm/lidar_utils.py) that feeds RangeNet++ on the metrics path. Numpy on
-the host, as the reference computes it.
-
-The reference's `save_generated` (a log-range image to a LiDARGen-geometry
-.bin) is not here: the sampling CLIs write their .bin files with
-`sample_ldm.save_outputs`, through the training sensor's own geometry.
+"""KITTI calibration and poses, the semantic-kitti LaserScan projection
+(ldm/lidar_utils.py) that feeds RangeNet++ on the metrics path, and the
+reference's `save_generated` (a log-range image to a LiDARGen-geometry
+.bin). Numpy on the host, as the reference computes it. The sampling CLIs
+write their .bin files with `sample_ldm.save_outputs`, through the training
+sensor's own geometry.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from rangeldm_tpu_torch.geometry.projection import decode_log_range
 
 
 def load_matrices(kitti_path: str, data_name: str):
@@ -71,3 +72,29 @@ def laserscan_project(points: np.ndarray, remissions: np.ndarray = None,
     # RangeNet's inputs are masked exactly as the reference masks them and
     # FRD stays comparable.
     return proj_range, proj_xyz, proj_rem, (proj_idx > 0).astype(np.float32)
+
+
+def save_generated(image: np.ndarray, filename: str,
+                   min_depth: float = 0.5, max_depth: float = 63.0) -> None:
+    """Decode a log-range (H, W, 2) image to `<filename>.bin`, float32
+    (x, y, z, intensity) rows of the pixels whose depth lies strictly
+    between `min_depth` and `max_depth`, in LiDARGen's uniform +3..-25
+    degree geometry (ldm/lidar_utils.py:218-250)."""
+    h, w = image.shape[:2]
+    depth = decode_log_range(image[:, :, 0]).ravel()
+    intensity = image[:, :, 1].ravel()
+
+    fov_up = 3.0 / 180.0 * np.pi
+    fov_down = -25.0 / 180.0 * np.pi
+    fov = abs(fov_down) + abs(fov_up)
+    xg, yg = np.meshgrid(np.arange(w) / w, np.arange(h) / h)
+    yaw = np.pi * (xg * 2 - 1).ravel()
+    pitch = ((1.0 - yg) * fov - abs(fov_down)).ravel()
+
+    pts = np.stack([np.cos(yaw) * np.cos(pitch) * depth,
+                    -np.sin(yaw) * np.cos(pitch) * depth,
+                    np.sin(pitch) * depth], axis=1)
+    mask = (depth > min_depth) & (depth < max_depth)
+    out = np.concatenate([pts[mask], intensity[mask, None]],
+                         axis=1).astype(np.float32)
+    out.tofile(f"{filename}.bin")

@@ -7,7 +7,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-from rangeldm_tpu_torch.diffusion.schedule import ScheduleConfig
+from rangeldm_tpu_torch.diffusion.schedule import Schedule, ScheduleConfig
 from rangeldm_tpu_torch.models.unet import UNetConfig
 from rangeldm_tpu_torch.models.vae import VaeConfig
 
@@ -36,6 +36,9 @@ class ModelSpec:
     def latent_shape(self) -> Tuple[int, int, int]:
         h, w = self.unet.sample_size
         return (h, w, self.unet.out_channels)
+
+    def make_schedule(self) -> Schedule:
+        return Schedule(self.schedule)
 
 
 def rangeldm_kitti360() -> ModelSpec:

@@ -55,8 +55,9 @@ the next step boundary.
 Orbax directories of the JAX package are not read: a pipeline directory
 is exported first (`python tools/export_pipeline.py`, on a machine with
 JAX), and a training checkpoint cannot be resumed here, since its JAX PRNG
-key has no torch.Generator counterpart. Not ported: the TensorBoard and
-wandb sinks.
+key has no torch.Generator counterpart. The scalar log also goes to
+TensorBoard event files under output_dir/tb unless `tensorboard: false`;
+the wandb sink is not ported.
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ import logging
 import os
 import re
 import time
+from contextlib import closing
 from typing import Mapping, Optional
 
 import torch
@@ -445,9 +447,9 @@ class LdmTrainer:
         """Train on `batches` until they run out or the step count reaches
         `max_steps`. Every `log_every` steps (and at the last) the loss,
         the gradient norm, the step and the steps per second since the
-        start of this call go to <output_dir>/train_log.jsonl, with the
-        `data_wait_frac` of `loader` (the RangeLoader feeding `batches`)
-        when one is given. A checkpoint every `checkpointing_steps`, a
+        start of this call go to <output_dir>/train_log.jsonl and
+        <output_dir>/tb, with the `data_wait_frac` of `loader` (the
+        RangeLoader feeding `batches`) when one is given. A checkpoint every `checkpointing_steps`, a
         sample dump every `sample_every_steps` (a conditional model samples
         from the current batch's conditions), and a checkpoint at the next
         step boundary after SIGUSR1 or when an exception escapes (then
@@ -470,7 +472,9 @@ class LdmTrainer:
         def write_now():
             self.ckpt.write(self.state.step, self.state)
 
-        with emergency_checkpoint(save_now, on_error=write_now) as melk:
+        # the event file is closed on the crash path too
+        with closing(logger), emergency_checkpoint(
+                save_now, on_error=write_now) as melk:
             for batch in batches:
                 batch = self._to_device(batch)
                 metrics = self.train_step(self.state, batch,

@@ -57,6 +57,7 @@ import copy
 import json
 import os
 import time
+from contextlib import closing
 from typing import Mapping, Optional
 
 import numpy as np
@@ -250,8 +251,8 @@ class VaeTrainer:
         """Train until `batches` run out or the step count reaches
         `max_steps`. Every `log_every` steps (and at the last) both steps'
         metrics, the step and the steps per second since the start of this
-        call go to output_dir/train_log.jsonl (with the loader's
-        `data_wait_frac` when `loader` is given); a checkpoint every
+        call go to output_dir/train_log.jsonl and output_dir/tb (with the
+        loader's `data_wait_frac` when `loader` is given); a checkpoint every
         `checkpoint_every_steps`, reconstruction grids every
         `log_images_every`, and a checkpoint at the next step boundary
         after SIGUSR1 or when an exception escapes. Returns the last logged
@@ -282,7 +283,9 @@ class VaeTrainer:
         def write_now():
             self.ckpt.write(self.state.step, self.state)
 
-        with emergency_checkpoint(save_now, on_error=write_now) as melk:
+        # the event file is closed on the crash path too
+        with closing(logger), emergency_checkpoint(
+                save_now, on_error=write_now) as melk:
             for batch in batches:
                 x = self._to_device(batch)
                 metrics = self.train_step(x)

@@ -2,12 +2,13 @@
 
 `ScalarLogger` is the `accelerator.log` equivalent
 (ldm/train_unconditional.py:587-591): every scalar dict goes to a jsonl
-stream and, when asked, to a Lightning-CSVLogger-style metrics.csv (header =
-union of keys, rewritten when new keys appear). It takes the JAX package's
-`tensorboard` and `wandb` switches, but those sinks are not ported: asking
-for one logs one warning and the run goes on with the other sinks. In a
-distributed run only rank 0 writes (the JAX package's `primary`
-default).
+stream, by default to TensorBoard event files under <out_dir>/tb (written
+with the standard library, `training/event_file.py`), and when asked to a
+Lightning-CSVLogger-style metrics.csv (header = union of keys, rewritten
+when new keys appear). It takes the JAX package's `wandb` switch, but that
+sink is not ported: asking for it logs one warning and the run goes on with
+the other sinks. In a distributed run only rank 0 writes (the JAX
+package's `primary` default).
 
 `emergency_checkpoint` is the reference's "melk" machinery
 (vae/main.py:254-261, 876-895; rangeldm_tpu/training/loggers.py:129-180):
@@ -27,27 +28,33 @@ import threading
 from typing import Callable, Dict, Iterator, Optional
 
 from rangeldm_tpu_torch.parallel.mesh import any_rank, is_primary
+from rangeldm_tpu_torch.training.event_file import EventFileWriter
 
 log = logging.getLogger(__name__)
 
 
 class ScalarLogger:
-    """Appends to <out_dir>/train_log.jsonl and, with csv=True,
-    <out_dir>/metrics.csv; each write is closed before `log` returns. On
-    any rank but 0 it writes nothing."""
+    """Appends to <out_dir>/train_log.jsonl, with tensorboard=True to a new
+    event file under <out_dir>/tb, and with csv=True to
+    <out_dir>/metrics.csv; each write reaches its file before `log`
+    returns, and `close()` closes the event file. On any rank but 0 it
+    writes nothing."""
 
     def __init__(self, out_dir: str, csv: bool = False,
-                 tensorboard: bool = False, wandb: bool = False):
+                 tensorboard: bool = True, wandb: bool = False):
         self.primary = is_primary()
+        self.tb: Optional[EventFileWriter] = None
         if not self.primary:
             return
-        for sink, wanted in (("tensorboard", tensorboard), ("wandb", wandb)):
-            if wanted:
-                log.warning("the %s sink is not available in this package; "
-                            "logging to train_log.jsonl%s only", sink,
-                            " and metrics.csv" if csv else "")
+        if wandb:
+            sinks = (["train_log.jsonl"] + ["tb/"] * tensorboard
+                     + ["metrics.csv"] * csv)
+            log.warning("the wandb sink is not available in this package; "
+                        "logging to %s only", ", ".join(sinks))
         os.makedirs(out_dir, exist_ok=True)
         self.jsonl_path = os.path.join(out_dir, "train_log.jsonl")
+        if tensorboard:
+            self.tb = EventFileWriter(os.path.join(out_dir, "tb"))
         self.csv_path = os.path.join(out_dir, "metrics.csv") if csv else None
         self._csv_keys: list = []
         self._csv_rows: list = []
@@ -79,8 +86,17 @@ class ScalarLogger:
         rec["step"] = int(step)
         with open(self.jsonl_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self.tb is not None:
+            for k, v in rec.items():
+                if k != "step":
+                    self.tb.add_scalar(k, v, rec["step"])
         if self.csv_path is not None:
             self._write_csv(rec)
+
+    def close(self) -> None:
+        """Flush and close the event file."""
+        if self.tb is not None:
+            self.tb.close()
 
 
 @contextlib.contextmanager

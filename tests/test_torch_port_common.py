@@ -9,6 +9,11 @@ files.
 """
 
 import dataclasses
+import importlib.util
+import json
+import os
+import sys
+import types
 
 import numpy as np
 import torch
@@ -25,6 +30,7 @@ from rangeldm_tpu_torch.convert import (
 )
 from rangeldm_tpu_torch.models.unet import UNet2D, UNetConfig
 from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
+from rangeldm_tpu_torch.training.event_file import event_files, read_scalars
 
 # the flagship grammar (4 levels, attention at down 1-3 / mid / up 0-2) at
 # narrow widths; the (16, 64) latent gives attention layers with T = 256,
@@ -115,3 +121,39 @@ def port_vae(jax_cfg, params) -> AutoencoderKL:
     model = AutoencoderKL(port_config(jax_cfg, VaeConfig))
     model.load_state_dict(vae_state_dict_from_jax(params), strict=True)
     return model.eval()
+
+
+def tb_scalars(logdir) -> list:
+    """(step, tag, value) of every scalar in a directory's event files, read
+    by TensorBoard's own loader (the event files stay in the order the
+    port's reader sorts them). TensorBoard reads with its own stub of
+    TensorFlow when a module `tensorboard.compat.notf` exists: importing
+    TensorFlow, where it is installed, would take seconds."""
+    sys.modules.setdefault("tensorboard.compat.notf",
+                           types.ModuleType("tensorboard.compat.notf"))
+    from tensorboard.backend.event_processing.event_file_loader import (
+        EventFileLoader,
+    )
+    from tensorboard.util import tensor_util
+    got = []
+    for path in event_files(str(logdir)):
+        for event in EventFileLoader(path).Load():
+            for v in event.summary.value:
+                got.append((event.step, v.tag,
+                            float(tensor_util.make_ndarray(v.tensor))))
+    return got
+
+
+def assert_tb_equals_jsonl(out_dir) -> None:
+    """<out_dir>/tb holds the rows of <out_dir>/train_log.jsonl: the same
+    tags, steps and float32 values, read by the port's reader and, where
+    the tensorboard package is installed, by TensorBoard's loader."""
+    with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    want = [(r["step"], k, float(np.float32(v))) for r in rows
+            for k, v in r.items() if k != "step"]
+    assert want
+    tb = os.path.join(out_dir, "tb")
+    assert read_scalars(tb) == want
+    if importlib.util.find_spec("tensorboard") is not None:
+        assert tb_scalars(tb) == want

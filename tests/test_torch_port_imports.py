@@ -56,7 +56,8 @@ def test_scan_sees_the_whole_package():
             "frd_pipeline.py", "chamfer.py", "precision.py",
             "discriminator.py", "lpips.py", "vae_trainer.py", "train_vae.py",
             "eval_vae.py", "mesh.py", "spatial.py", "sharded_vae.py",
-            "sliced.py", "experimental.py", "profiling.py"} <= names
+            "sliced.py", "experimental.py", "profiling.py",
+            "event_file.py"} <= names
     assert (ROOT / "rangeldm_tpu_torch" / "native" / "__init__.py") in set(
         _sources())
 

@@ -48,7 +48,9 @@ from rangeldm_tpu_torch.training import image_logger, latent_cache
 from rangeldm_tpu_torch.training.checkpoint import TrainCheckpointer
 from rangeldm_tpu_torch.training.loggers import emergency_checkpoint
 from rangeldm_tpu_torch.utils.config import expand_env, load_config
-from test_torch_port_common import jax_vae_params, port_vae
+from test_torch_port_common import (
+    assert_tb_equals_jsonl, jax_vae_params, port_vae,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIGS = sorted((ROOT / "rangeldm_tpu" / "configs").glob("*.yaml"))
@@ -313,9 +315,11 @@ MAIN_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(MAIN_CASES))
-def test_main_trains_from_yaml_on_the_cpu(case, kitti_root, tmp_path):
+def test_main_trains_from_yaml_on_the_cpu(case, kitti_root, tmp_path,
+                                         caplog):
     """`main(["--cfg", shipped, override, "--max_steps", "2", "--device",
-    "cpu"])` on 8 scans at width 64: the log of both steps, the rotated
+    "cpu"])` on 8 scans at width 64: the log of both steps, the default
+    TensorBoard event file equal to it with no warning, the rotated
     checkpoint, the sample grid, and a pipeline with its run record."""
     out = tmp_path / "run"
     override = dict(MAIN_CASES[case], output_dir=str(out),
@@ -323,7 +327,7 @@ def test_main_trains_from_yaml_on_the_cpu(case, kitti_root, tmp_path):
                     train_batch_size=4, lr_warmup_steps=1,
                     checkpointing_steps=1, checkpoints_total_limit=1,
                     sample_every_steps=2, ddpm_num_inference_steps=2,
-                    log_every=1, mixed_precision="no", tensorboard=False)
+                    log_every=1, mixed_precision="no")
     path = chip_smoke.write_yaml(str(tmp_path / "override.yaml"), override)
     shipped = ROOT / "rangeldm_tpu" / "configs" / "rangedm_kitti360.yaml"
     launches = dict(kernels.LAUNCHES)
@@ -335,6 +339,8 @@ def test_main_trains_from_yaml_on_the_cpu(case, kitti_root, tmp_path):
            .splitlines()]
     assert [r["step"] for r in log] == [1, 2]
     assert all(np.isfinite(r["loss"]) for r in log)
+    assert_tb_equals_jsonl(out)
+    assert "tensorboard" not in caplog.text.lower()
     assert os.listdir(out / "checkpoints") == ["checkpoint_2"]
     grid = np.asarray(Image.open(out / "samples" / "samples_step00000002.png"))
     assert grid.shape == (2 * 8 * 64, 64)      # 8 range rows, 8 intensity

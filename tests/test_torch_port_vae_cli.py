@@ -42,13 +42,15 @@ from rangeldm_tpu_torch.geometry import get_spec
 from rangeldm_tpu_torch.train_ldm import load_vae
 from rangeldm_tpu_torch.training.checkpoint import TrainCheckpointer
 from rangeldm_tpu_torch.training.image_logger import save_bev_png
-from test_torch_port_common import nhwc_to_torch, torch_to_nhwc
+from test_torch_port_common import (
+    assert_tb_equals_jsonl, nhwc_to_torch, torch_to_nhwc,
+)
 
 TRAIN_SCANS, HELD_OUT = 4, 4
 WIDTH = 32
 CFG = {
     "data": {"width": WIDTH}, "batch_size": 2, "log_every": 1,
-    "checkpoint_every_steps": 2, "tensorboard": False,
+    "checkpoint_every_steps": 2,
     "vae": {"ch": 32, "ch_mult": [1]},
     "loss": {"disc_start": 2, "disc_num_layers": 2},
 }
@@ -116,6 +118,9 @@ def test_resumed_run_equals_the_uninterrupted_one(runs):
     whole, log, resumed, log_b = runs
     assert [r["step"] for r in log] == [1, 2, 3]
     assert [r["step"] for r in log_b] == [1, 2, 3]
+    # the default TensorBoard sink: one event file a run, equal to the log
+    assert_tb_equals_jsonl(whole.out_dir)
+    assert_tb_equals_jsonl(resumed.out_dir)
     drop = ("sps", "data_wait_frac")
     for a, b in zip(log, log_b):
         assert {k: v for k, v in a.items() if k not in drop} == {
