@@ -37,6 +37,7 @@ import numpy as np
 from rangeldm_tpu_torch.geometry.sensors import SensorSpec, get_spec
 from rangeldm_tpu_torch.native import range_image_native
 from rangeldm_tpu_torch.parallel.mesh import process_shard
+from rangeldm_tpu_torch.utils.profiling import record_span
 
 HELD_OUT_DRIVES = ("0000_sync", "0002_sync")    # the KITTI-360 test split
 
@@ -339,23 +340,25 @@ class RangeLoader:
 
         t = threading.Thread(target=produce, daemon=True)
         t.start()
-        t_epoch = time.perf_counter()
+        t_epoch = time.time_ns()
         wait_s = 0.0
         consumed = 0
         starved = 0
         try:
             while True:
-                t0 = time.perf_counter()
+                # one measurement for the wait fraction and the span
+                t0 = time.time_ns()
                 item = q.get()
-                now = time.perf_counter()
-                got_wait = now - t0
+                t1 = time.time_ns()
+                record_span("loader_wait", t0, t1)
+                got_wait = (t1 - t0) / 1e9
                 wait_s += got_wait
                 if item is end:
                     break
                 if isinstance(item, BaseException):
                     raise RuntimeError("RangeLoader producer failed") from item
                 consumed += self.batch_size
-                elapsed = max(now - t_epoch, 1e-9)
+                elapsed = max((t1 - t_epoch) / 1e9, 1e-9)
                 self.wait_fraction = wait_s / elapsed
                 if got_wait > self.STALL_WAIT_S:
                     starved += 1

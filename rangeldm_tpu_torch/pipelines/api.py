@@ -29,6 +29,7 @@ from rangeldm_tpu_torch.geometry.sensors import SensorSpec, get_spec
 from rangeldm_tpu_torch.parallel.mesh import (
     largest_divisible_prefix, local_devices,
 )
+from rangeldm_tpu_torch.utils.profiling import step_annotation
 # module references, not names: both import this package in turn
 from rangeldm_tpu_torch import sample_conditional, sample_ldm
 
@@ -134,27 +135,35 @@ class RangePipeline:
             raise ValueError(f"this pipeline is conditional "
                              f"({self.cond_channels} condition channels): "
                              f"use .upsample() / .inpaint()")
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
-        sample = sample_ldm.build_sampler(
-            self._p, batch_size, num_inference_steps, method,
-            final_only=final_only, mesh=self._mesh_for_batch(batch_size))
-        out = sample(generator)
-        if final_only:
-            return out.float().cpu().numpy()
-        return tuple(u.float().cpu().numpy() for u in out)
+        with step_annotation("sample_call"):
+            if generator is None:
+                generator = torch.Generator(
+                    device=self.device).manual_seed(seed)
+            sample = sample_ldm.build_sampler(
+                self._p, batch_size, num_inference_steps, method,
+                final_only=final_only,
+                mesh=self._mesh_for_batch(batch_size))
+            out = sample(generator)
+            with step_annotation("to_host"):
+                if final_only:
+                    return out.float().cpu().numpy()
+                return tuple(u.float().cpu().numpy() for u in out)
 
     # -- conditional generation ----------------------------------------
     def _cond_sample(self, cond_inputs: dict, mode: str, num_steps: int,
                      seed: int, generator: Optional[torch.Generator],
                      factor: int, method: str) -> np.ndarray:
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
-        batch = len(next(iter(cond_inputs.values())))
-        sample = sample_conditional.build_conditional_sampler(
-            self._p, batch, mode, num_steps, factor, method=method,
-            mesh=self._mesh_for_batch(batch))
-        return sample(generator, cond_inputs).float().cpu().numpy()
+        with step_annotation("sample_call"):
+            if generator is None:
+                generator = torch.Generator(
+                    device=self.device).manual_seed(seed)
+            batch = len(next(iter(cond_inputs.values())))
+            sample = sample_conditional.build_conditional_sampler(
+                self._p, batch, mode, num_steps, factor, method=method,
+                mesh=self._mesh_for_batch(batch))
+            out = sample(generator, cond_inputs)
+            with step_annotation("to_host"):
+                return out.float().cpu().numpy()
 
     def upsample(self, sparse_images, num_inference_steps: int = 50,
                  seed: int = 0, generator: Optional[torch.Generator] = None,

@@ -26,6 +26,7 @@ import torch
 
 from rangeldm_tpu_torch.diffusion.schedule import Schedule, f32
 from rangeldm_tpu_torch.parallel.mesh import split_batch
+from rangeldm_tpu_torch.utils.profiling import step_annotation
 
 
 def to_bhwc(x: torch.Tensor) -> torch.Tensor:
@@ -100,22 +101,24 @@ def denoise(model_fns: Sequence[Callable], schedule: Schedule,
     for i, (t, tp) in enumerate(step_pairs(schedule, num_steps)):
         if collect_trajectory:
             traj.append(list(xs))
-        outs = [fn(torch.cat([x, *ex], dim=1) if ex else x, t)
-                for fn, x, ex in zip(model_fns, xs, extras)]
-        if method == "dpmpp":
-            for j, (out, x, (prev_x0, h_prev)) in enumerate(
-                    zip(outs, xs, state)):
-                xs[j], prev_x0, h_prev = schedule.dpmpp_2m_step(
-                    out, t, tp, x, prev_x0, h_prev, i == 0)
-                state[j] = (prev_x0, h_prev)
-        elif method == "ddpm":
-            xs = [schedule.ddpm_step(out, t, tp, x, nz) for out, x, nz in
-                  zip(outs, xs, _randn_like(xs, generator))]
-        else:
-            noise = (_randn_like(xs, generator) if eta > 0.0
-                     else [None] * len(xs))
-            xs = [schedule.ddim_step(out, t, tp, x, eta=eta, noise=nz)
-                  for out, x, nz in zip(outs, xs, noise)]
+        with step_annotation("unet_eval"):
+            outs = [fn(torch.cat([x, *ex], dim=1) if ex else x, t)
+                    for fn, x, ex in zip(model_fns, xs, extras)]
+        with step_annotation("sampler_update"):
+            if method == "dpmpp":
+                for j, (out, x, (prev_x0, h_prev)) in enumerate(
+                        zip(outs, xs, state)):
+                    xs[j], prev_x0, h_prev = schedule.dpmpp_2m_step(
+                        out, t, tp, x, prev_x0, h_prev, i == 0)
+                    state[j] = (prev_x0, h_prev)
+            elif method == "ddpm":
+                xs = [schedule.ddpm_step(out, t, tp, x, nz) for out, x, nz in
+                      zip(outs, xs, _randn_like(xs, generator))]
+            else:
+                noise = (_randn_like(xs, generator) if eta > 0.0
+                         else [None] * len(xs))
+                xs = [schedule.ddim_step(out, t, tp, x, eta=eta, noise=nz)
+                      for out, x, nz in zip(outs, xs, noise)]
     return (xs, traj) if collect_trajectory else xs
 
 
@@ -142,8 +145,9 @@ def _pos(shape, dtype, xs):
 def _decode(vae_decodes, zs, scaling_factor: float) -> torch.Tensor:
     """(B, H, W, C) images of the latent chunks `zs`, each through its
     device's decoder, gathered."""
-    return to_bhwc(_gather([dec(z / scaling_factor)
-                            for dec, z in zip(vae_decodes, zs)]))
+    with step_annotation("vae_decode"):
+        return to_bhwc(_gather([dec(z / scaling_factor)
+                                for dec, z in zip(vae_decodes, zs)]))
 
 
 def ddpm_sample(model_fns, schedule: Schedule, shape: Tuple[int, ...],

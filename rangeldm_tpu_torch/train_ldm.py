@@ -106,6 +106,7 @@ from rangeldm_tpu_torch.training.loggers import (
 )
 from rangeldm_tpu_torch.training.train_state import TrainState, make_adamw
 from rangeldm_tpu_torch.utils.config import Cfg, expand_env, load_config
+from rangeldm_tpu_torch.utils.profiling import step_annotation
 
 log = logging.getLogger(__name__)
 
@@ -162,6 +163,7 @@ def load_vae(path: str, cfg: Optional[VaeConfig] = None) -> AutoencoderKL:
 
 # the batch entries a step reads: images or moments, and the conditions
 BATCH_KEYS = ("jpg", "moments", "down", "masked_image", "inpainting_mask")
+_END = object()     # what `fit` pulls from exhausted batches
 
 
 class LdmTrainer:
@@ -169,6 +171,10 @@ class LdmTrainer:
     EMA from `cfg`; `fit` consumes any iterable of batch dicts."""
 
     def __init__(self, cfg: Mapping, device=None):
+        with step_annotation("trainer_init"):
+            self._init(cfg, device)
+
+    def _init(self, cfg: Mapping, device) -> None:
         self.cfg = cfg = Cfg.wrap(dict(cfg))
         self.device = resolve_device(device)
         self.spec = spec_from_cfg(cfg)
@@ -180,30 +186,35 @@ class LdmTrainer:
             beta_schedule=cfg.get("ddpm_beta_schedule", "linear"),
             prediction_type=cfg.get("prediction_type", "epsilon")))
 
-        # seeded random initial weights, without touching the caller's RNG
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(int(cfg.get("seed", 0)))
-            unet = UNet2D(self.spec.unet)
-            with_vae = bool(cfg.get("with_vae", self.spec.vae is not None))
-            vae = AutoencoderKL(self.spec.vae) if with_vae else None
-        if vae is not None and cfg.get("vae_checkpoint"):
-            vae = load_vae(cfg.vae_checkpoint, self.spec.vae)
-        self.unet = unet.to(self.device).train()
-        # every rank starts from rank 0's weights
-        broadcast_(list(self.unet.parameters()) + list(self.unet.buffers()))
-        self.vae = (vae.to(self.device).eval().requires_grad_(False)
-                    if vae is not None else None)
+        with step_annotation("build_models"):
+            # seeded random initial weights, without touching the caller's
+            # RNG
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(int(cfg.get("seed", 0)))
+                unet = UNet2D(self.spec.unet)
+                with_vae = bool(cfg.get("with_vae",
+                                        self.spec.vae is not None))
+                vae = AutoencoderKL(self.spec.vae) if with_vae else None
+            if vae is not None and cfg.get("vae_checkpoint"):
+                vae = load_vae(cfg.vae_checkpoint, self.spec.vae)
+            self.unet = unet.to(self.device).train()
+            # every rank starts from rank 0's weights
+            broadcast_(list(self.unet.parameters())
+                       + list(self.unet.buffers()))
+            self.vae = (vae.to(self.device).eval().requires_grad_(False)
+                        if vae is not None else None)
 
-        tx = make_adamw(
-            self.unet.parameters(),
-            learning_rate=float(cfg.get("learning_rate", 1e-4)),
-            warmup_steps=int(cfg.get("lr_warmup_steps", 500)),
-            total_steps=int(cfg.get("total_steps", 1_000_000)),
-            schedule=cfg.get("lr_scheduler", "cosine"),
-            beta1=float(cfg.get("adam_beta1", 0.95)),
-            beta2=float(cfg.get("adam_beta2", 0.999)),
-            weight_decay=float(cfg.get("adam_weight_decay", 1e-6)),
-            eps=float(cfg.get("adam_epsilon", 1e-8)))
+        with step_annotation("optimizer"):
+            tx = make_adamw(
+                self.unet.parameters(),
+                learning_rate=float(cfg.get("learning_rate", 1e-4)),
+                warmup_steps=int(cfg.get("lr_warmup_steps", 500)),
+                total_steps=int(cfg.get("total_steps", 1_000_000)),
+                schedule=cfg.get("lr_scheduler", "cosine"),
+                beta1=float(cfg.get("adam_beta1", 0.95)),
+                beta2=float(cfg.get("adam_beta2", 0.999)),
+                weight_decay=float(cfg.get("adam_weight_decay", 1e-6)),
+                eps=float(cfg.get("adam_epsilon", 1e-8)))
         self.state = TrainState.create(
             self.unet, tx, with_ema=bool(cfg.get("use_ema", True)))
         # the noise and timesteps of every step; its state is checkpointed
@@ -453,7 +464,9 @@ class LdmTrainer:
         sample dump every `sample_every_steps` (a conditional model samples
         from the current batch's conditions), and a checkpoint at the next
         step boundary after SIGUSR1 or when an exception escapes (then
-        rank 0 writes it alone). Returns the last logged record."""
+        rank 0 writes it alone). Each step is a `train_step` span
+        (utils/profiling.py), from the batch pull to the end of its log,
+        checkpoint and dump. Returns the last logged record."""
         cfg = self.cfg
         ckpt_steps = int(cfg.get("checkpointing_steps", 500))
         sample_steps = cfg.get("sample_every_steps")
@@ -475,28 +488,42 @@ class LdmTrainer:
         # the event file is closed on the crash path too
         with closing(logger), emergency_checkpoint(
                 save_now, on_error=write_now) as melk:
-            for batch in batches:
-                batch = self._to_device(batch)
-                metrics = self.train_step(self.state, batch,
-                                          self.state.generator)
-                melk()
-                step += 1
-                done = bool(max_steps) and step >= max_steps
-                if step % log_every == 0 or done:
-                    # float() waits for the device: only at log steps
-                    last = {k: float(v) for k, v in metrics.items()}
-                    last.update(step=step, sps=(
-                        (step - step0)
-                        / max(time.perf_counter() - t0, 1e-9)))
-                    if loader is not None:
-                        last["data_wait_frac"] = loader.wait_fraction
-                    logger.log(step, last)
-                if step % ckpt_steps == 0:
-                    self.ckpt.save(step, self.state)
-                if sample_steps and step % int(sample_steps) == 0:
-                    self.dump_samples(step, cond_batch=(
-                        batch if self.spec.cond_channels else None))
-                    melk()   # serve a signal that came during the dump
+            batches = iter(batches)
+            while True:
+                with step_annotation("train_step") as root:
+                    with step_annotation("batch_wait") as wait:
+                        batch = next(batches, _END)
+                        if batch is _END:
+                            wait.discard()
+                            root.discard()
+                    if batch is _END:
+                        break
+                    with step_annotation("to_device"):
+                        batch = self._to_device(batch)
+                    metrics = self.train_step(self.state, batch,
+                                              self.state.generator)
+                    melk()
+                    step += 1
+                    done = bool(max_steps) and step >= max_steps
+                    if step % log_every == 0 or done:
+                        with step_annotation("log_sync"):
+                            # float() waits for the device: only at log
+                            # steps
+                            last = {k: float(v) for k, v in metrics.items()}
+                            last.update(step=step, sps=(
+                                (step - step0)
+                                / max(time.perf_counter() - t0, 1e-9)))
+                            if loader is not None:
+                                last["data_wait_frac"] = loader.wait_fraction
+                            logger.log(step, last)
+                    if step % ckpt_steps == 0:
+                        with step_annotation("checkpoint"):
+                            self.ckpt.save(step, self.state)
+                    if sample_steps and step % int(sample_steps) == 0:
+                        with step_annotation("sample_dump"):
+                            self.dump_samples(step, cond_batch=(
+                                batch if self.spec.cond_channels else None))
+                        melk()   # serve a signal that came during the dump
                 if done:
                     break
         return last

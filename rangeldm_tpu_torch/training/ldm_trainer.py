@@ -36,6 +36,7 @@ from rangeldm_tpu_torch.parallel.mesh import all_reduce_mean_, global_draw
 from rangeldm_tpu_torch.pipelines.samplers import make_pos_encoding
 from rangeldm_tpu_torch.training.ema import ema_update, power_decay
 from rangeldm_tpu_torch.training.train_state import TrainState
+from rangeldm_tpu_torch.utils.profiling import step_annotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,9 +63,10 @@ def apply_updates_and_ema(state: TrainState, loss: torch.Tensor,
                       if p.grad is not None] + [loss])
     grad_norm = state.apply_gradients()
     if state.ema is not None:
-        decay = power_decay(state.step, cfg.ema_inv_gamma, cfg.ema_power,
-                            max_decay=cfg.ema_max_decay)
-        ema_update(state.ema, state.model.parameters(), decay)
+        with step_annotation("ema"):
+            decay = power_decay(state.step, cfg.ema_inv_gamma,
+                                cfg.ema_power, max_decay=cfg.ema_max_decay)
+            ema_update(state.ema, state.model.parameters(), decay)
     state.step += 1
     return {"loss": loss, "grad_norm": grad_norm}
 
@@ -133,6 +135,19 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
         with autocast(device):
             return cond_fn(batch, generator, posterior_noise)
 
+    def draws(latents, generator, noise, timesteps):
+        """The step's noise and timesteps, drawn where not given."""
+        dev, b = latents.device, latents.shape[0]
+        if noise is None:
+            noise = global_draw(lambda s: torch.randn(
+                s, generator=generator, dtype=latents.dtype, device=dev),
+                latents.shape)
+        if timesteps is None:
+            timesteps = global_draw(lambda s: torch.randint(
+                0, schedule.cfg.num_train_timesteps, s, generator=generator,
+                device=dev), (b,))
+        return noise, timesteps
+
     def loss_fn(model, latents, noise, t, cond) -> torch.Tensor:
         noisy = schedule.add_noise(latents, noise, t)
         target = (noise if prediction_type == "epsilon"
@@ -159,42 +174,43 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
                    timesteps: Optional[torch.Tensor] = None,
                    posterior_noise: Optional[torch.Tensor] = None,
                    cond_posterior_noise: Optional[torch.Tensor] = None):
-        latents = encode(batch, generator, posterior_noise)
-        dev = latents.device
-        if (cond_posterior_noise is None and cond_fn is not None
-                and isinstance(batch, dict) and "masked_image" in batch):
-            # the inpainting condition's posterior draw of the masked image
-            # (of the latents' shape)
-            cond_posterior_noise = global_draw(lambda s: torch.randn(
-                s, generator=generator, device=dev), latents.shape)
-        cond = condition(batch, generator, cond_posterior_noise)
-        b = latents.shape[0]
-        if noise is None:
-            noise = global_draw(lambda s: torch.randn(
-                s, generator=generator, dtype=latents.dtype, device=dev),
-                latents.shape)
-        if timesteps is None:
-            timesteps = global_draw(lambda s: torch.randint(
-                0, schedule.cfg.num_train_timesteps, s, generator=generator,
-                device=dev), (b,))
+        with step_annotation("encode"):
+            latents = encode(batch, generator, posterior_noise)
+            dev = latents.device
+            if (cond_posterior_noise is None and cond_fn is not None
+                    and isinstance(batch, dict) and "masked_image" in batch):
+                # the inpainting condition's posterior draw of the masked
+                # image (of the latents' shape)
+                cond_posterior_noise = global_draw(lambda s: torch.randn(
+                    s, generator=generator, device=dev), latents.shape)
+            cond = condition(batch, generator, cond_posterior_noise)
         model = state.model
-        state.optimizer.zero_grad(set_to_none=True)
         k = cfg.grad_accum_steps
         if k == 1:
-            loss = loss_fn(model, latents, noise, timesteps, cond)
-            loss.backward()
+            with step_annotation("forward"):
+                noise, timesteps = draws(latents, generator, noise,
+                                         timesteps)
+                state.optimizer.zero_grad(set_to_none=True)
+                loss = loss_fn(model, latents, noise, timesteps, cond)
+            with step_annotation("backward"):
+                loss.backward()
             return apply_updates_and_ema(state, loss.detach(), cfg)
-        if b % k:
-            raise ValueError(f"batch {b} is not divisible into "
-                             f"{k} micro-batches")
+        if latents.shape[0] % k:
+            raise ValueError(f"batch {latents.shape[0]} is not divisible "
+                             f"into {k} micro-batches")
+        noise, timesteps = draws(latents, generator, noise, timesteps)
+        state.optimizer.zero_grad(set_to_none=True)
         # micro-batch accumulation (the reference's accelerate.accumulate,
-        # ldm/train_unconditional.py:503): sum the gradients, then average
+        # ldm/train_unconditional.py:503): sum the gradients, then average;
+        # a forward and a backward span each
         loss = torch.zeros((), device=latents.device)
         conds = cond.chunk(k) if cond is not None else [None] * k
         for lat, nz, t, cd in zip(latents.chunk(k), noise.chunk(k),
                                   timesteps.chunk(k), conds):
-            micro = loss_fn(model, lat, nz, t, cd)
-            micro.backward()
+            with step_annotation("forward"):
+                micro = loss_fn(model, lat, nz, t, cd)
+            with step_annotation("backward"):
+                micro.backward()
             loss = loss + micro.detach()
         torch._foreach_div_([p.grad for p in model.parameters()
                              if p.grad is not None], k)

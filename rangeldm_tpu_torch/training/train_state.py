@@ -24,6 +24,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from rangeldm_tpu_torch.utils.profiling import step_annotation
+
 
 def warmup_cosine_schedule(peak: float, warmup_steps: int, decay_steps: int,
                            end_value: float = 0.0) -> Callable[[int], float]:
@@ -159,8 +161,10 @@ class TrainState:
     @classmethod
     def create(cls, model: torch.nn.Module, tx: Tx,
                with_ema: bool = True) -> "TrainState":
-        ema = ([p.detach().float().clone() for p in model.parameters()]
-               if with_ema else None)
+        ema = None
+        if with_ema:
+            with step_annotation("ema_clone"):
+                ema = [p.detach().float().clone() for p in model.parameters()]
         return cls(0, model, tx.optimizer, tx.schedule, ema, tx.grad_clip)
 
     def apply_gradients(self) -> torch.Tensor:
@@ -168,13 +172,16 @@ class TrainState:
         norm (returned, taken before the clip), the clip, then AdamW at the
         learning rate of the pre-increment step. The step count is the
         caller's to advance."""
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        norm = global_norm(grads)
-        clip_by_global_norm_(grads, self.grad_clip, norm)
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
+        with step_annotation("clip"):
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
+            norm = global_norm(grads)
+            clip_by_global_norm_(grads, self.grad_clip, norm)
+        with step_annotation("adamw"):
+            lr = self.schedule(self.step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
         return norm
 
     def ema_state_dict(self) -> Dict[str, torch.Tensor]:

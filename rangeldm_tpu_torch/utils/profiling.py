@@ -1,4 +1,4 @@
-"""Profiling hooks, and where the time of a training step goes on the card.
+"""Profiling hooks and the program's spans: host time by layer.
 
 The JAX package's hooks (rangeldm_tpu/utils/profiling.py) on
 torch.profiler:
@@ -9,44 +9,45 @@ torch.profiler:
     trace_op_breakdown("runs/x/trace", {"attention": ("attention",)})
     device_memory_stats()
 
-The step profile:
+`step_annotation(name)` is the program's span. Each records its name, an
+id, its parent's id (0 for a root; from a stack local to the thread), the
+thread and its start and end in `time.time_ns()` into a ring of the last
+RING_LEN spans. While a profiler runs, a span also enters a
+`_RecordFunctionFast` range: a host event of the trace (category
+`cpu_op`, not a user annotation) on the same clock as the ring. With no
+profiler a span costs two clock reads, a check that no profiler runs and
+one tuple appended to the ring (about 1 us). Spans sit at layer
+boundaries only:
 
-    python -m rangeldm_tpu_torch.utils.profiling [--model rangedm_kitti360
-                                                  --batch 8]
+    sample_call > unet_eval, sampler_update, vae_decode, to_host
+    train_step > batch_wait (> loader_wait), to_device, encode, forward,
+                 backward, clip, adamw, ema, log_sync, checkpoint,
+                 sample_dump
+    trainer_init > build_models, optimizer, ema_clone
 
-Builds `LdmTrainer` on a zoo model (default the flagship
-`rangeldm_kitti360` at batch 32; pixel-space RangeDM trains at batch 8 in
-its shipped YAML) in bf16 with seeded random weights and the trainer's
-defaults for the rest, runs WARMUP fit steps on seeded synthetic range
-images, times STEPS more on the host clock, then profiles STEPS more.
-Prints one JSON line: wall time per step without and with the profiler,
-device busy time per step (the union of the kernels' intervals), the
-device's idle share (against the unprofiled wall time: the profiler slows
-the host, not the kernels), and device time per step by kernel group and
-by kernel name. Needs a CUDA device.
+`spans()` reads the ring, `span_summary()` sums it by name beside
+`ops.kernels.LAUNCHES`, the launch counter of the hand-written kernels.
 """
 
 from __future__ import annotations
 
-import argparse
+import collections
 import contextlib
 import glob
+import itertools
 import json
 import os
 import re
-import subprocess
-import tempfile
+import threading
 import time
 from collections import defaultdict
-from typing import Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import (
-    ProfilerActivity, profile, record_function, tensorboard_trace_handler,
-)
+from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
-WARMUP, STEPS, TOP = 3, 5, 20
+TOP = 20
 # kernel-name patterns, first match wins
 GROUPS = [
     ("attention_bwd", r"attention_bwd"),
@@ -80,9 +81,126 @@ def maybe_trace(log_dir: Optional[str], enabled: bool = False):
         yield
 
 
-def step_annotation(name: str):
-    """A named range in the trace."""
-    return record_function(name)
+# -- spans ------------------------------------------------------------------
+
+RING_LEN = 65536
+
+
+class Span(NamedTuple):
+    """One finished span: `parent` is the id of the span that was open on
+    the same thread when it began (0 for a root); times are
+    `time.time_ns()`, the clock of torch.profiler's Kineto events."""
+    name: str
+    id: int
+    parent: int
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+# finished spans as plain tuples in Span's field order, oldest first
+_RING: "collections.deque[tuple]" = collections.deque(maxlen=RING_LEN)
+_IDS = itertools.count(1)
+_FAST = torch._C._profiler._RecordFunctionFast
+_PROFILING = torch._C._autograd._profiler_enabled
+_LOCAL = threading.local()
+
+
+def _thread() -> tuple:
+    """(the ids of the spans open on this thread, innermost last; the
+    thread's id). A plain thread-local read is faster than an attribute of
+    a threading.local subclass."""
+    try:
+        return _LOCAL.state
+    except AttributeError:
+        _LOCAL.state = ([], threading.get_ident())
+        return _LOCAL.state
+
+
+class step_annotation:
+    """A span around a block: `with step_annotation("adamw"): ...`. It is
+    appended to the ring when the block ends, unless `discard()` was
+    called; while a profiler runs it also enters a fast record-function
+    range, which torch.profiler traces as a host event."""
+
+    __slots__ = ("name", "id", "parent", "start", "_thread", "_range",
+                 "_keep")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "step_annotation":
+        thread = self._thread = _thread()
+        stack = thread[0]
+        self.parent = stack[-1] if stack else 0
+        self.id = next(_IDS)
+        stack.append(self.id)
+        self._keep = True
+        self._range = _FAST(self.name) if _PROFILING() else None
+        if self._range is not None:
+            self._range.__enter__()
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        end = time.time_ns()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        stack, ident = self._thread
+        stack.pop()
+        if self._keep:
+            _RING.append((self.name, self.id, self.parent, ident,
+                          self.start, end))
+
+    def discard(self) -> None:
+        """Record nothing of this span (an exhausted iterator's last pull
+        is no step)."""
+        self._keep = False
+
+
+def record_span(name: str, start_ns: int, end_ns: int) -> None:
+    """Append a span the caller timed itself with `time.time_ns()`, as a
+    child of the span open on this thread; it makes no trace event."""
+    stack, ident = _thread()
+    _RING.append((name, next(_IDS), stack[-1] if stack else 0, ident,
+                  start_ns, end_ns))
+
+
+def spans() -> List[Span]:
+    """The ring, oldest first."""
+    return [Span(*t) for t in list(_RING)]
+
+
+def _nearest_rank(ordered: List[float], q: float) -> float:
+    return ordered[max(1, -(-len(ordered) * q // 100)) - 1]
+
+
+def span_summary(names: Optional[Iterable[str]] = None) -> dict:
+    """{"spans": {name: {"count", "total_ms", "self_ms", "p50_ms",
+    "p95_ms"}}, "launches": the hand-written kernels' launch counts} over
+    the ring, for the names given (default every name in it). A span's
+    self time is its duration less its children's."""
+    from rangeldm_tpu_torch.ops.kernels import LAUNCHES
+
+    ring = spans()
+    child_ns: Dict[int, int] = defaultdict(int)
+    for s in ring:
+        if s.parent:
+            child_ns[s.parent] += s.end_ns - s.start_ns
+    durations, selves = defaultdict(list), defaultdict(int)
+    for s in ring:
+        durations[s.name].append(s.end_ns - s.start_ns)
+        selves[s.name] += s.end_ns - s.start_ns - child_ns.get(s.id, 0)
+    wanted = list(durations) if names is None else [
+        n for n in names if n in durations]
+    out = {}
+    for name in wanted:
+        ordered = sorted(durations[name])
+        out[name] = {"count": len(ordered), "total_ms": sum(ordered) / 1e6,
+                     "self_ms": selves[name] / 1e6,
+                     "p50_ms": _nearest_rank(ordered, 50) / 1e6,
+                     "p95_ms": _nearest_rank(ordered, 95) / 1e6}
+    return {"spans": out, "launches": dict(LAUNCHES)}
 
 
 # Chrome-trace categories of the device's work
@@ -110,11 +228,11 @@ def trace_op_breakdown(trace_dir: str, groups: Optional[dict] = None
     groups: {group: (name substring, ...)}; an op whose name holds one of
     the substrings (case-insensitive) counts in that group, the first
     matching group only. Without it, the groups of `GROUPS` and "other"
-    (`group_of`), as the step profile sorts. The device's kernels, copies
-    and sets where the
-    trace has any (plane "/device:cuda:<index>"), else the host's outermost
+    (`group_of`). The device's kernels, copies and sets where the trace has
+    any (plane "/device:cuda:<index>"), else the host's outermost
     operators (plane "/host:cpu"), as the JAX package falls back to its
-    host plane: fine for tests, not for claims."""
+    host plane: fine for tests, not for claims. The program's spans are
+    host events too; the fallback leaves out every name the ring holds."""
     paths = sorted(glob.glob(os.path.join(trace_dir, "**", "*.json"),
                              recursive=True), key=os.path.getmtime)
     if not paths:
@@ -126,7 +244,9 @@ def trace_op_breakdown(trace_dir: str, groups: Optional[dict] = None
     if device:
         plane = f"/device:cuda:{device[0].get('args', {}).get('device', 0)}"
     else:
-        device = _outermost([e for e in events if e.get("cat") == "cpu_op"])
+        span_names = {t[0] for t in list(_RING)}
+        device = _outermost([e for e in events if e.get("cat") == "cpu_op"
+                             and e["name"] not in span_names])
         plane = "/host:cpu"
     if not device:
         raise ValueError(f"no device or host operator in {paths[-1]}")
@@ -222,52 +342,3 @@ def device_time(prof, steps: int, wall_ms: float) -> dict:
         "top_kernels": [{"name": n[:120], "ms_per_step": ms,
                          "launches_per_step": counts[n] / steps}
                         for n, ms in top]}
-
-
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="rangeldm_kitti360")
-    ap.add_argument("--batch", type=int, default=32)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profiling needs a CUDA device")
-    from rangeldm_tpu_torch.train_ldm import LdmTrainer
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    with tempfile.TemporaryDirectory() as tmp:
-        trainer = LdmTrainer({"model": args.model,
-                              "mixed_precision": "bf16",
-                              "lr_warmup_steps": 2, "output_dir": tmp})
-        h, w = trainer.spec.image_size
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        images = [torch.randn((args.batch, h, w, 2), generator=gen,
-                              device="cuda")
-                  for _ in range(WARMUP + 2 * STEPS)]
-        batches = iter({"jpg": x} for x in images)
-
-        def steps(until: int) -> float:
-            """ms per step of fit up to step `until`, host clock."""
-            n = until - trainer.state.step
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer.fit(batches, max_steps=until, log_every=n)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3 / n
-
-        steps(WARMUP)
-        wall = steps(WARMUP + STEPS)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall_profiled = steps(WARMUP + 2 * STEPS)
-    result = {"card": smi, "model": args.model, "batch": args.batch,
-              "steps": STEPS, "dtype": "bfloat16", "wall_ms_per_step": wall,
-              "wall_ms_per_step_profiled": wall_profiled,
-              **device_time(prof, STEPS, wall)}
-    print(json.dumps(result))
-    return result
-
-
-if __name__ == "__main__":
-    main()

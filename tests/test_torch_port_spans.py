@@ -1,0 +1,326 @@
+"""The port's spans (rangeldm_tpu_torch/utils/profiling.py `step_annotation`,
+`record_span`, `spans`, `span_summary`) on the CPU: where the training and
+sampling paths put them, their parents across threads, the ring's bound,
+their clock against torch.profiler's, the idle-gap label they give
+perfbench/trace.py, and the benchmark's readers of host time by layer
+(perfbench/metrics/host_*.py, trainer_init_s.train.py)."""
+
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from perfbench import harness
+from perfbench import trace as bench_trace
+from rangeldm_tpu_torch.data.datasets import RangeLoader
+from rangeldm_tpu_torch.diffusion.schedule import Schedule, ScheduleConfig
+from rangeldm_tpu_torch.models.unet import UNet2D, UNetConfig
+from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
+from rangeldm_tpu_torch.pipelines import RangePipeline
+from rangeldm_tpu_torch.training.latent_cache import MomentsDataset
+from rangeldm_tpu_torch.utils import profiling
+from rangeldm_tpu_torch.utils.profiling import (
+    RING_LEN, Span, record_span, span_summary, spans, step_annotation,
+)
+
+TRAIN_CFG = {
+    "model_config": {"sample_size": [32, 4], "in_channels": 5,
+                     "out_channels": 4, "block_out_channels": [32, 32],
+                     "down_block_types": ["DownBlock2D", "AttnDownBlock2D"],
+                     "up_block_types": ["AttnUpBlock2D", "UpBlock2D"]},
+    "vae_config": {"ch": 32, "ch_mult": [1, 2], "z_channels": 4},
+    "train_batch_size": 2, "lr_warmup_steps": 1, "tensorboard": False,
+}
+IMAGE = (16, 128)
+STEP_CHILDREN = ["batch_wait", "to_device", "encode", "forward", "backward",
+                 "clip", "adamw", "ema"]
+METRICS = harness.BENCH_DIR / "metrics"
+
+
+@pytest.fixture(autouse=True)
+def _fresh_ring():
+    """The ring is the process's: other tests of this worker leave spans
+    in it."""
+    torch.set_num_threads(2)
+    profiling._RING.clear()
+    yield
+    profiling._RING.clear()
+
+
+def dur(s: Span) -> int:
+    return s.end_ns - s.start_ns
+
+
+def children(ring, parent: Span):
+    return [s for s in ring if s.parent == parent.id]
+
+
+def trainer(tmp_path, **cfg):
+    from rangeldm_tpu_torch.train_ldm import LdmTrainer
+    return LdmTrainer(dict(TRAIN_CFG, output_dir=str(tmp_path), **cfg),
+                      device="cpu")
+
+
+def test_fit_leaves_a_train_step_root_per_step(tmp_path):
+    tr = trainer(tmp_path)
+    rng = np.random.default_rng(0)
+    tr.fit(({"jpg": rng.standard_normal((2, *IMAGE, 2)).astype(np.float32)}
+            for _ in range(3)), log_every=50)
+    ring = spans()
+    init, = [s for s in ring if s.name == "trainer_init"]
+    assert init.parent == 0
+    assert sorted(s.name for s in children(ring, init)) == [
+        "build_models", "ema_clone", "optimizer"]
+    roots = [s for s in ring if s.name == "train_step"]
+    assert len(roots) == 3 and all(r.parent == 0 for r in roots)
+    summary = span_summary()["spans"]
+    for root in roots:
+        kids = sorted(children(ring, root), key=lambda s: s.start_ns)
+        assert [s.name for s in kids] == STEP_CHILDREN
+        assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+                   for s in kids)
+        assert sum(dur(s) for s in kids) <= dur(root)
+    for stats in summary.values():
+        assert 0 <= stats["self_ms"] <= stats["total_ms"]
+    # the exhausted iterator's last pull leaves nothing
+    assert summary["batch_wait"]["count"] == 3
+
+
+def test_micro_batches_and_the_loader_wait(tmp_path):
+    """grad_accum_steps 2: a forward and a backward span per micro-batch,
+    under the step; RangeLoader's waits under the batch pull, and the
+    wait fraction from the same clock reads."""
+    tr = trainer(tmp_path, gradient_accumulation_steps=2)
+    rng = np.random.default_rng(1)
+    moments = rng.standard_normal((6, 4, 32, 8)).astype(np.float32)
+    loader = RangeLoader(MomentsDataset(moments), batch_size=2,
+                         num_threads=1)
+    tr.fit(loader, max_steps=3, log_every=1, loader=loader)
+    ring = spans()
+    by_id = {s.id: s for s in ring}
+    for root in [s for s in ring if s.name == "train_step"]:
+        names = [s.name for s in sorted(children(ring, root),
+                                        key=lambda s: s.start_ns)]
+        assert names == ["batch_wait", "to_device", "encode", "forward",
+                         "backward", "forward", "backward", "clip",
+                         "adamw", "ema", "log_sync"]
+    waits = [s for s in ring if s.name == "loader_wait"]
+    assert len(waits) == 3
+    assert all(by_id[s.parent].name == "batch_wait" for s in waits)
+    assert 0.0 <= loader.wait_fraction <= 1.0
+
+
+def tiny_pipe():
+    ucfg = UNetConfig(sample_size=(4, 32), in_channels=5, out_channels=4,
+                      block_out_channels=(32, 32),
+                      down_block_types=("DownBlock2D", "AttnDownBlock2D"),
+                      up_block_types=("AttnUpBlock2D", "UpBlock2D"))
+    vcfg = VaeConfig(ch=32, ch_mult=(1, 2), z_channels=4, num_res_blocks=1)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        unet = UNet2D(ucfg).eval().requires_grad_(False)
+        vae = AutoencoderKL(vcfg).eval().requires_grad_(False)
+    return dict(meta={"pos_encoding": True}, unet=unet, unet_cfg=ucfg,
+                vae=vae, vae_cfg=vcfg, schedule=Schedule(ScheduleConfig()),
+                device=torch.device("cpu"), dtype=torch.float32)
+
+
+def test_pipeline_call_leaves_one_sample_call():
+    images = RangePipeline(tiny_pipe())(batch_size=2, num_inference_steps=4,
+                                        seed=3)
+    assert images.shape[0] == 2
+    ring = spans()
+    root, = [s for s in ring if s.name == "sample_call"]
+    assert root.parent == 0
+    names = [s.name for s in sorted(children(ring, root),
+                                    key=lambda s: s.start_ns)]
+    assert names == ["unet_eval", "sampler_update"] * 4 + [
+        "vae_decode", "to_host"]
+    counts = {n: s["count"] for n, s in
+              span_summary(["unet_eval", "to_host"])["spans"].items()}
+    assert counts == {"unet_eval": 4, "to_host": 1}
+
+
+def test_threads_keep_their_own_parents():
+    ready, go = threading.Barrier(2), threading.Event()
+
+    def work(tag):
+        with step_annotation(f"outer_{tag}"):
+            ready.wait()
+            with step_annotation(f"inner_{tag}"):
+                go.wait(5)
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in "ab"]
+    for t in threads:
+        t.start()
+    time.sleep(0.05)
+    go.set()
+    for t in threads:
+        t.join()
+    ring = {s.name: s for s in spans()}
+    for tag in "ab":
+        outer, inner = ring[f"outer_{tag}"], ring[f"inner_{tag}"]
+        assert outer.parent == 0 and inner.parent == outer.id
+        assert inner.thread == outer.thread
+    assert ring["outer_a"].thread != ring["outer_b"].thread
+
+
+def test_the_ring_drops_its_oldest_spans():
+    for i in range(RING_LEN + 10):
+        record_span(f"s{i}", i, i + 1)
+    ring = spans()
+    assert len(ring) == RING_LEN
+    assert ring[0].name == "s10" and ring[-1].name == f"s{RING_LEN + 9}"
+
+
+def test_span_summary_self_time_and_launches():
+    record_span("outer", 0, 10_000_000)     # recorded as a root
+    with step_annotation("outer") as outer:
+        record_span("inner", 0, 3_000_000)
+        record_span("inner", 0, 1_000_000)
+    out = span_summary()
+    assert set(out) == {"spans", "launches"}
+    assert isinstance(out["launches"], dict)
+    inner = out["spans"]["inner"]
+    assert inner["count"] == 2 and inner["total_ms"] == pytest.approx(4.0)
+    assert inner["p50_ms"] == pytest.approx(1.0)
+    assert inner["p95_ms"] == pytest.approx(3.0)
+    mine = dur(next(s for s in spans() if s.id == outer.id)) / 1e6
+    assert out["spans"]["outer"]["self_ms"] == pytest.approx(
+        10.0 + mine - 4.0)
+
+
+def test_span_is_a_host_event_on_the_profilers_clock():
+    x = torch.ones(32, 32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with step_annotation("clock_check"):
+            x = x @ x
+    ev, = [e for e in prof.profiler.kineto_results.events()
+           if e.name() == "clock_check"]
+    assert not ev.is_user_annotation()
+    span, = [s for s in spans() if s.name == "clock_check"]
+    assert abs(span.start_ns - ev.start_ns()) < 1_000_000
+    assert abs(span.end_ns - (ev.start_ns() + ev.duration_ns())) < 1_000_000
+
+
+def test_an_idle_gap_in_a_span_takes_its_name():
+    """perfbench/trace.py labels a gap by the innermost host event at its
+    middle: the host's Python inside a span now reads as the span."""
+    a = torch.ones(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        b = a @ a
+        with step_annotation("host_layer"):
+            time.sleep(0.02)
+        torch.tanh(b)
+    device, host = bench_trace.from_profile(prof)
+    span, = [h for h in host if h[2] == "host_layer"]
+    before = max(e for s, e, name in host if e <= span[0])
+    after = min(s for s, e, name in host if s >= span[1])
+    planted = [("k_before", before - 1e-4, before),
+               ("k_after", after, after + 1e-4)]
+    reduced = bench_trace.reduce(device + planted, host)
+    assert reduced["idle_gaps"][0][0] == "host_layer"
+
+
+# -- the benchmark's readers -----------------------------------------------
+
+def _planted_train_ring():
+    """trainer_init (2.5 s), 3 set-up steps, 4 window steps, 2 profiled
+    steps; each step's children last what the table below says."""
+    ring, ids = [], iter(range(1, 10_000))
+    t = 0
+
+    def add(name, ms, parent=0):
+        nonlocal t
+        s = Span(name, next(ids), parent, 1, t, t + int(ms * 1e6))
+        ring.append(s)
+        return s
+
+    init = add("trainer_init", 2500)
+    t = 0
+    for name in ("build_models", "optimizer", "ema_clone"):
+        add(name, 100, init.id)
+    # (encode, forward, backward, clip, adamw, ema, log_sync) per step
+    plan = [(9, 9, 9, 9, 9, 9, 0)] * 3 + [
+        (1, 2, 3, 1, 1, 1, 0), (2, 2, 3, 1, 2, 1, 0),
+        (3, 2, 3, 1, 3, 1, 8), (4, 2, 3, 1, 4, 1, 0),
+    ] + [(50, 50, 50, 50, 50, 50, 0)] * 2
+    for row in plan:
+        root = add("train_step", 500)
+        for name, ms in zip(("encode", "forward", "backward", "clip",
+                             "adamw", "ema", "log_sync"), row):
+            if ms:
+                add(name, ms, root.id)
+    return ring
+
+
+def _planted_sampling_ring():
+    ring, ids = [], iter(range(1, 10_000))
+    for call, ms in enumerate([30, 10, 20, 40, 90]):  # 1 set-up, 3, 1
+        root = Span("sample_call", next(ids), 0, 1, 0, 10 ** 9)
+        ring.append(root)
+        for j in range(4):
+            ring.append(Span("unet_eval", next(ids), root.id, 1, 0,
+                             int((ms + j) * 1e6)))
+            ring.append(Span("sampler_update", next(ids), root.id, 1, 0,
+                             10 ** 6))
+    return ring
+
+
+TRAIN_RECORD = {"kind": "train", "units": 2, "evals": 2,
+                "unprofiled": {"units": 4, "wall_s": 2.0}}
+SAMPLING_RECORD = {"kind": "sampling", "units": 1, "evals": 4,
+                   "unprofiled": {"units": 3, "wall_s": 3.0}}
+READERS = {
+    # window steps' model ms: 6, 7, 8, 9 -> median 7.5
+    "host_model_ms_per_step.train": (TRAIN_RECORD, 7.5),
+    # clip + adamw + ema: 3, 4, 5, 6 -> median 4.5
+    "host_update_ms_per_step.train": (TRAIN_RECORD, 4.5),
+    # log_sync + checkpoint: 0, 0, 8, 0 -> mean 2
+    "host_sync_ms_per_step.train": (TRAIN_RECORD, 2.0),
+    "trainer_init_s.train": (TRAIN_RECORD, 2.5),
+    # calls 10, 20, 40 ms + (0..3) a step -> 11.5, 21.5, 41.5 -> 21.5
+    "host_ms_per_unet_eval.sampling": (SAMPLING_RECORD, 21.5),
+}
+
+
+def reader(name):
+    return harness.load_module(METRICS / f"{name}.py",
+                               "spans_test_" + name.replace(".", "_"))
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_reader_reads_the_window_of_a_planted_ring(name, monkeypatch):
+    record, want = READERS[name]
+    ring = (_planted_sampling_ring() if record["kind"] == "sampling"
+            else _planted_train_ring())
+    monkeypatch.setattr(profiling, "spans", lambda: list(ring))
+    read = reader(name).read
+    assert read(record, {}) == pytest.approx(want)
+    # the other kind of cell, or too few roots, reads nothing
+    other = SAMPLING_RECORD if record is TRAIN_RECORD else TRAIN_RECORD
+    assert read(other, {}) is None
+    if name != "trainer_init_s.train":
+        assert read(dict(record, units=len(ring)), {}) is None
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_reader_of_a_program_without_spans_reads_none(name, monkeypatch):
+    monkeypatch.delattr(profiling, "spans")
+    record, _ = READERS[name]
+    assert reader(name).read(record, {}) is None
+
+
+def test_readers_are_listed_for_their_cells():
+    bench = harness.load_json(Path(harness.BENCH_DIR).parent /
+                              "BENCHMARK.json")
+    listed = {m["name"]: m for m in bench["per_layer"]}
+    for name, (record, _) in READERS.items():
+        m = listed[name]
+        assert m["source"] == "program_span"
+        kinds = {harness.Cell(c).kind for c in m["workloads"]}
+        assert kinds == {record["kind"]}
