@@ -60,7 +60,8 @@ def build_conditional_sampler(pipe, batch_size: int, mode: str,
     if pipe["vae"] is None:
         raise ValueError("conditional sampling needs a latent pipeline")
     mesh = sample_ldm.sampling_mesh(pipe, batch_size, mesh)
-    unets, vaes = sample_ldm.replicas(pipe, mesh)
+    unets = sample_ldm.unet_fns(pipe, mesh)
+    _, vaes = sample_ldm.replicas(pipe, mesh)
     cfg, vcfg = pipe["unet_cfg"], pipe["vae_cfg"]
     sf, dtype, device = vcfg.scaling_factor, pipe["dtype"], pipe["device"]
     h, w = cfg.sample_size

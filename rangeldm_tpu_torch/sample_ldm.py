@@ -45,6 +45,7 @@ from rangeldm_tpu_torch.parallel.mesh import (
     default_cuda_device, largest_divisible_prefix, local_devices,
     process_shard,
 )
+from rangeldm_tpu_torch.pipelines.graphs import GraphedUNet
 from rangeldm_tpu_torch.pipelines.samplers import ddim_sample, latent_sample
 
 
@@ -177,6 +178,19 @@ def replicas(pipe, mesh) -> tuple:
     return unets, vaes
 
 
+def unet_fns(pipe, mesh) -> tuple:
+    """The sampling loop's model function on each device of `mesh`: a
+    `GraphedUNet` over that device's UNet replica, made once and kept in the
+    pipe dict beside the replicas, so that its CUDA graphs outlive the
+    sampler that each call builds (pipelines/graphs.py)."""
+    unets, _ = replicas(pipe, mesh)
+    store = pipe.setdefault("graphed", {})
+    for dev, unet in zip(mesh, unets):
+        if str(dev) not in store:
+            store[str(dev)] = GraphedUNet(unet)
+    return tuple(store[str(dev)] for dev in mesh)
+
+
 def build_sampler(pipe, batch_size: int, num_steps: int = 50,
                   method: str = "ddim", eta: float = 0.0,
                   final_only: bool = True, mesh=None):
@@ -186,9 +200,11 @@ def build_sampler(pipe, batch_size: int, num_steps: int = 50,
     state before every step) as `latent_sample` does. `mesh`, a tuple of
     devices from the pipeline's on (`resolve_sampling_mesh`), splits every
     batch over them, one replica of the models on each, with the same
-    result (pipelines/samplers.py)."""
+    result (pipelines/samplers.py). Each replica's UNet runs through its
+    `GraphedUNet` (`unet_fns`)."""
     mesh = sampling_mesh(pipe, batch_size, mesh)
-    unets, vaes = replicas(pipe, mesh)
+    unets = unet_fns(pipe, mesh)
+    _, vaes = replicas(pipe, mesh)
     cfg = pipe["unet_cfg"]
     h, w = cfg.sample_size
     shape = (batch_size, h, w, cfg.out_channels)

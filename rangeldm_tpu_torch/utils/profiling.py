@@ -19,7 +19,8 @@ profiler a span costs two clock reads, a check that no profiler runs and
 one tuple appended to the ring (about 1 us). Spans sit at layer
 boundaries only:
 
-    sample_call > unet_eval, sampler_update, vae_decode, to_host
+    sample_call > unet_eval (> unet_graph_replay, unet_graph_capture or
+                  unet_eager), sampler_update, vae_decode, to_host
     train_step > batch_wait (> loader_wait), to_device, encode, forward,
                  backward, clip, adamw, ema, log_sync, checkpoint,
                  sample_dump

@@ -11,6 +11,7 @@ largest entry in bf16 (tests/test_torch_port_attention_bwd.py says why)."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -610,3 +611,92 @@ def test_sliced_and_experimental_modules_on_the_card_match_the_cpu(name):
         got = module.cuda()(*(x.cuda() for x in inputs))
     assert got.shape == want.shape
     assert rel_gap(got, want) <= SPATIAL_TOL
+
+
+# -- the sampling loop's CUDA graphs (pipelines/graphs.py) ------------------
+
+@pytest.fixture(scope="module")
+def graph_pipes():
+    """Flagship-width pipelines in bf16 with seeded random weights, the
+    unconditional one and the upsampling one, built once: the cases call
+    them in turn, as a user calls one pipeline, so a new batch size is
+    captured beside the graphs already held."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    from rangeldm_tpu_torch.models import zoo
+    from rangeldm_tpu_torch.models.vae import AutoencoderKL
+    from rangeldm_tpu_torch.pipelines import RangePipeline
+
+    def pipe(spec, seed):
+        torch.manual_seed(seed)
+        unet = UNet2D(dataclasses.replace(spec.unet, circular=True))
+        vae = AutoencoderKL(spec.vae)
+        unet, vae = (m.to("cuda", torch.bfloat16).eval().requires_grad_(False)
+                     for m in (unet, vae))
+        return RangePipeline(dict(
+            meta={"pos_encoding": spec.pos_encoding}, unet=unet,
+            unet_cfg=unet.cfg, vae=vae, vae_cfg=spec.vae,
+            schedule=spec.make_schedule(), device=torch.device("cuda"),
+            dtype=torch.bfloat16))
+
+    return {"sample": pipe(zoo.rangeldm_kitti360(), 11),
+            "upsample": pipe(zoo.rangeldm_upsample(), 12)}
+
+
+# (call, method, steps, batch): the benchmark's DDIM-50 at batch 32, then
+# DPM++ at batch 4 (a second capture), DDPM at the same batch (its graph
+# replayed), an upsampling call (the condition in the static input)
+GRAPH_CASES = [("sample", "ddim", 50, 32), ("sample", "dpmpp", 20, 4),
+               ("sample", "ddpm", 20, 4), ("upsample", "ddim", 20, 4)]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES,
+                         ids=["-".join(map(str, c)) for c in GRAPH_CASES])
+def test_graphed_pipeline_calls_equal_eager_ones_bit_for_bit(
+        case, graph_pipes, monkeypatch):
+    from rangeldm_tpu_torch.pipelines import graphs
+    from rangeldm_tpu_torch.utils import profiling
+    mode, method, steps, batch = case
+    pipe = graph_pipes[mode]
+    sparse = torch.randn(batch, 16, 1024, 2,
+                         generator=torch.Generator().manual_seed(5)).numpy()
+
+    def call():
+        before = dict(kernels.LAUNCHES)
+        if mode == "sample":
+            out = pipe(batch_size=batch, num_inference_steps=steps, seed=7,
+                       method=method)
+        else:
+            out = pipe.upsample(sparse, num_inference_steps=steps, seed=7,
+                                method=method)
+        return out, {k: n - before.get(k, 0)
+                     for k, n in kernels.LAUNCHES.items()}
+
+    def runner_spans():
+        names = [s.name for s in profiling.spans()]
+        profiling._RING.clear()
+        return {k: names.count(k) for k in (
+            "unet_eager", "unet_graph_capture", "unet_graph_replay")}
+
+    profiling._RING.clear()
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "_graphable", lambda x, t: False)
+        want, want_launches = call()
+    assert runner_spans()["unet_eager"] == steps
+    assert want_launches[KERNEL] == 16 * steps
+    # the first call at a batch size runs eager and captures, unless an
+    # earlier case left its graph; the pipeline keeps it for the next call
+    first = call()
+    spans_first = runner_spans()
+    second = call()
+    assert spans_first["unet_graph_capture"] <= 1
+    assert sum(spans_first.values()) == steps
+    assert runner_spans() == {"unet_eager": 0, "unet_graph_capture": 0,
+                              "unet_graph_replay": steps}
+    for got, launches in (first, second):
+        assert np.array_equal(got, want)
+        assert launches == want_launches
+    runner, = pipe._p["graphed"].values()
+    assert (torch.device("cuda", 0), (batch, runner.module.cfg.in_channels,
+                                      256, 16), torch.bfloat16) in \
+        runner._graphs

@@ -258,14 +258,27 @@ def _planted_train_ring():
     return ring
 
 
-def _planted_sampling_ring():
+# the graphed model function's span under each call's 4 evaluations
+EAGER, CAPTURE, REPLAY = ("unet_eager", "unet_graph_capture",
+                          "unet_graph_replay")
+RUNNER_PLAN = [(EAGER, CAPTURE, REPLAY, REPLAY)] + [
+    (REPLAY,) * 4, (CAPTURE,) + (REPLAY,) * 3, (REPLAY,) * 4] + [
+    (EAGER,) * 4]
+
+
+def _planted_sampling_ring(runner=True):
     ring, ids = [], iter(range(1, 10_000))
-    for call, ms in enumerate([30, 10, 20, 40, 90]):  # 1 set-up, 3, 1
+    for ms, kinds in zip([30, 10, 20, 40, 90],   # 1 set-up, 3, 1
+                         RUNNER_PLAN):
         root = Span("sample_call", next(ids), 0, 1, 0, 10 ** 9)
         ring.append(root)
-        for j in range(4):
-            ring.append(Span("unet_eval", next(ids), root.id, 1, 0,
-                             int((ms + j) * 1e6)))
+        for j, kind in enumerate(kinds):
+            ev = Span("unet_eval", next(ids), root.id, 1, 0,
+                      int((ms + j) * 1e6))
+            ring.append(ev)
+            if runner:
+                ring.append(Span(kind, next(ids), ev.id, 1, 0,
+                                 int((ms + j) * 1e6)))
             ring.append(Span("sampler_update", next(ids), root.id, 1, 0,
                              10 ** 6))
     return ring
@@ -285,6 +298,8 @@ READERS = {
     "trainer_init_s.train": (TRAIN_RECORD, 2.5),
     # calls 10, 20, 40 ms + (0..3) a step -> 11.5, 21.5, 41.5 -> 21.5
     "host_ms_per_unet_eval.sampling": (SAMPLING_RECORD, 21.5),
+    # window calls' replays: 4, 3 (and a capture), 4 of 4 -> 100, 75, 100
+    "unet_graph_replay_share.sampling": (SAMPLING_RECORD, 100.0),
 }
 
 
@@ -324,3 +339,15 @@ def test_readers_are_listed_for_their_cells():
         assert m["source"] == "program_span"
         kinds = {harness.Cell(c).kind for c in m["workloads"]}
         assert kinds == {record["kind"]}
+
+
+def test_replay_share_of_a_program_without_the_graphed_unet_reads_none(
+        monkeypatch):
+    """The parent's ring: `unet_eval` spans with no runner span under
+    them; the other sampling reader reads as before."""
+    ring = _planted_sampling_ring(runner=False)
+    monkeypatch.setattr(profiling, "spans", lambda: list(ring))
+    assert reader("unet_graph_replay_share.sampling").read(
+        SAMPLING_RECORD, {}) is None
+    assert reader("host_ms_per_unet_eval.sampling").read(
+        SAMPLING_RECORD, {}) == pytest.approx(21.5)
