@@ -47,11 +47,12 @@ Phases, each printing one JSON line:
   9b. vae_train - VAE-GAN training through `train_vae.main` on the shipped
                  vae_kitti360.yaml at full width (batch 16, the 3-layer
                  MetaKernel discriminator) over the synthetic root: 6 steps
-                 in f32 past disc_start 2, a resume from step 3 bit-equal to
-                 them, validation, the sgm weights through train_ldm.load_vae,
-                 eval_vae on the held-out scans, 4 steps in bf16, a profile
-                 of a step, and small steps on the card against the CPU; no
-                 attention kernel on this path
+                 in f32 (the trainer's own TF32 setting: cuDNN's on, as in
+                 the published runs) past disc_start 2, a resume from step 3
+                 bit-equal to them, validation, the sgm weights through
+                 train_ldm.load_vae, eval_vae on the held-out scans, 4
+                 steps in bf16, a profile of a step, and small steps on the
+                 card against the CPU; no attention kernel on this path
   9c. ddp      - data parallelism over torch.distributed, in worker
                  processes of this script (`chip_smoke.py worker ...`):
                  (a) the flagship step (TRAIN_CFG, bf16) on two ranks
@@ -1356,7 +1357,9 @@ def phase_vae_train(data_root: str, smi) -> dict:
     images with 2 channels, batch 16, the 3-layer MetaKernel
     discriminator) plus an override file (disc_start 2, a checkpoint every
     3 steps, logs every step), over the synthetic root: run A to step 6 in
-    f32 (TF32 off); the held-out validation; vae_sgm.safetensors through
+    f32 (with the trainer's TF32 setting, which `VaeTrainer` sets around
+    each step whatever this process set: cuDNN's on, matrix products'
+    off); the held-out validation; vae_sgm.safetensors through
     train_ldm.load_vae; eval_vae on the held-out scans; a profile of two
     steps; run D to step 6 and run B resumed from D's checkpoint_3, both
     with deterministic algorithms, B bit-equal to D; run C in bf16; and one
@@ -1391,7 +1394,7 @@ def phase_vae_train(data_root: str, smi) -> dict:
             torch.cuda.synchronize()
             return trainer, read_log(out), time.perf_counter() - t0
 
-        # run A: f32, steps 1-6
+        # run A: f32 with the trainer's TF32 convolutions, steps 1-6
         torch.cuda.reset_peak_memory_stats()
         trainer, log_a, fields["run_a_seconds"] = run("a", last)
         fields["peak_memory_gib"] = (torch.cuda.max_memory_allocated()
@@ -1423,8 +1426,8 @@ def phase_vae_train(data_root: str, smi) -> dict:
         clean = [(1, 2), (4, 5), (5, 6)]
         seconds = sum(ends[b] - ends[a] for a, b in clean)
         fields.update(
-            f32_steps_per_s=len(clean) / seconds,
-            f32_samples_per_s=len(clean) * VAE_BATCH / seconds,
+            tf32_steps_per_s=len(clean) / seconds,
+            tf32_samples_per_s=len(clean) * VAE_BATCH / seconds,
             first_step_s=ends[1],
             d_weight=[r["d_weight"] for r in log_a],
             losses={k: [r[k] for r in log_a] for k in (
@@ -1463,7 +1466,7 @@ def phase_vae_train(data_root: str, smi) -> dict:
             np.isfinite(v) for v in scores.values()), f"eval_vae {scores}")
         fields["eval_vae"] = scores
 
-        # a profile of two more f32 steps of run A's trainer
+        # a profile of two more steps of run A's trainer (TF32 convolutions)
         batch = next(iter(train_vae.RangeLoader(
             train_vae.RangeImageDataset(train_vae.dataset_config(cfg)),
             batch_size=VAE_BATCH)))
@@ -1480,7 +1483,7 @@ def phase_vae_train(data_root: str, smi) -> dict:
             for _ in range(2):
                 trainer.train_step(x)
             torch.cuda.synchronize()
-        fields["profile_f32"] = dict(wall_ms_per_step=wall,
+        fields["profile_tf32"] = dict(wall_ms_per_step=wall,
                                      **device_time(prof, 2, wall))
         del trainer, state, loaded
 
@@ -1511,7 +1514,7 @@ def phase_vae_train(data_root: str, smi) -> dict:
             resume_equal=dict(steps=[r["step"] for r in log_b],
                               tensors=sum(torch.is_tensor(v)
                                           for v in got.values())),
-            deterministic_f32_steps_per_s=len(clean) / sum(
+            deterministic_tf32_steps_per_s=len(clean) / sum(
                 ends[b] - ends[a] for a, b in clean),
             default_vs_deterministic_max_rel=max(
                 abs(r[k] - s[k]) / max(abs(s[k]), 1e-6)

@@ -24,6 +24,18 @@ vae_nuscenes.yaml): `vae:` (ch, ch_mult, z_channels, act, circular),
 step then one discriminator step; the learning rate is base_lr *
 batch_size with scale_lr (vae/main.py:846-873).
 
+The steps compute in the reference's precision whatever the caller set:
+the published runs leave vae/main.py's `--enable_tf32` off, so PyTorch's
+defaults hold there, TF32 on for cuDNN's convolutions and off for matrix
+products. Each step runs under that setting (`utils/precision.tf32`),
+the caller's restored after it.
+
+Spans (utils/profiling.py): `trainer_init` > `build_models`, `optimizer`,
+`ema_clone`; per step of `fit` a `train_step` root > `batch_wait`,
+`to_device`, `gen_step`, `disc_step`, `log_sync`, `checkpoint`, and the
+steps' own spans under `gen_step` and `disc_step`
+(training/vae_trainer.py).
+
 Checkpoints are safetensors + JSON (training/checkpoint.py), rolling, every
 `checkpoint_every_steps`, keeping three, and on SIGUSR1; `resume` restores
 the newest. Each step's posterior noise comes from a generator seeded by
@@ -88,8 +100,14 @@ from rangeldm_tpu_torch.training.vae_trainer import (
     VaeGanState, VaeLossConfig, make_vae_gan_steps, reconstruction_loss,
 )
 from rangeldm_tpu_torch.utils.config import Cfg, expand_env, load_config
+from rangeldm_tpu_torch.utils.precision import tf32
+from rangeldm_tpu_torch.utils.profiling import step_annotation
 
 GEN, DISC = 0, 1      # the noise streams of the two steps
+_END = object()       # what `fit` pulls from exhausted batches
+# TF32 for (cuDNN, matrix products) in the steps: PyTorch's defaults, which
+# the published runs keep (vae/main.py's --enable_tf32 left off)
+STEP_TF32 = (True, False)
 
 
 def step_generator(seed: int, step: int, stream: int,
@@ -115,6 +133,10 @@ class VaeTrainer:
     (B, H, W, C) images or {'jpg': ...} batches."""
 
     def __init__(self, cfg: Mapping, device=None):
+        with step_annotation("trainer_init"):
+            self._init(cfg, device)
+
+    def _init(self, cfg: Mapping, device) -> None:
         self.cfg = cfg = Cfg.wrap(dict(cfg))
         self.device = resolve_device(device)
         # opt-in bf16 autocast of the VAE's and discriminator's forwards
@@ -151,7 +173,8 @@ class VaeTrainer:
                 "normalized range image, not a BEV density grid)")
         nl = int(lcfg.get("disc_num_layers", 3))
         sp = self.sensor_spec
-        with torch.random.fork_rng(devices=[]):
+        with step_annotation("build_models"), \
+                torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(cfg.get("seed", 0)))
             vae = AutoencoderKL(self.vae_cfg)
             if mk == 2:
@@ -164,12 +187,12 @@ class VaeTrainer:
                 disc = NLayerDiscriminator(
                     2 if lc.disc_bev else uf,
                     ndf=int(lcfg.get("disc_ndf", 64)), n_layers=nl)
+            vae, disc = vae.to(self.device), disc.to(self.device)
 
         bs = int(cfg.get("batch_size", 16))
         base_lr = float(cfg.get("base_learning_rate", 4.5e-6))
         self.lr = base_lr * bs if cfg.get("scale_lr", True) else base_lr
-        self.state = VaeGanState.create(vae.to(self.device),
-                                        disc.to(self.device), self.lr, lc)
+        self.state = VaeGanState.create(vae, disc, self.lr, lc)
         # every rank starts from rank 0's weights, statistics and EMA
         st = self.state
         broadcast_([*st.vae.parameters(), *st.disc.parameters(),
@@ -231,18 +254,22 @@ class VaeTrainer:
 
     def train_step(self, x: torch.Tensor) -> dict:
         """One generator step, then one discriminator step, on the
-        (B, C, W, H) batch `x`; their metrics, as tensors."""
+        (B, C, W, H) batch `x`, in the published TF32 setting; their metrics,
+        as tensors."""
         step = self.state.step
-        gm = self.gen_step(self.state, x, generator=step_generator(
-            self.seed, step, GEN, self.device))
-        dm = self.disc_step(self.state, x, generator=step_generator(
-            self.seed, step + 1, DISC, self.device))
+        with tf32(*STEP_TF32):
+            with step_annotation("gen_step"):
+                gm = self.gen_step(self.state, x, generator=step_generator(
+                    self.seed, step, GEN, self.device))
+            with step_annotation("disc_step"):
+                dm = self.disc_step(self.state, x, generator=step_generator(
+                    self.seed, step + 1, DISC, self.device))
         return {**gm, **dm}
 
     @torch.no_grad()
     def reconstruct(self, vae: AutoencoderKL, x: torch.Tensor,
                     generator: torch.Generator) -> torch.Tensor:
-        with self._autocast():
+        with tf32(*STEP_TF32), self._autocast():
             xrec, _, _ = vae(x, generator=generator)
         return xrec.float()
 
@@ -255,8 +282,9 @@ class VaeTrainer:
         loader's `data_wait_frac` when `loader` is given); a checkpoint every
         `checkpoint_every_steps`, reconstruction grids every
         `log_images_every`, and a checkpoint at the next step boundary
-        after SIGUSR1 or when an exception escapes. Returns the last logged
-        record."""
+        after SIGUSR1 or when an exception escapes. Each step is a
+        `train_step` span, from the batch pull to the end of its log and
+        checkpoint. Returns the last logged record."""
         cfg = self.cfg
         ckpt_every = int(cfg.get("checkpoint_every_steps", 1020))
         image_logger = None
@@ -286,31 +314,45 @@ class VaeTrainer:
         # the event file is closed on the crash path too
         with closing(logger), emergency_checkpoint(
                 save_now, on_error=write_now) as melk:
-            for batch in batches:
-                x = self._to_device(batch)
-                metrics = self.train_step(x)
-                melk()
-                step += 1
-                if image_logger is not None and image_logger.should_log(step):
-                    xrec = self.reconstruct(
-                        self.state.vae, x,
-                        torch.Generator(self.device).manual_seed(step))
-                    image_logger.log(
-                        step, inputs=to_bhwc(x).cpu().numpy(),
-                        reconstructions=to_bhwc(xrec).cpu().numpy())
+            batches = iter(batches)
+            while True:
+                with step_annotation("train_step") as root:
+                    with step_annotation("batch_wait") as wait:
+                        batch = next(batches, _END)
+                        if batch is _END:
+                            wait.discard()
+                            root.discard()
+                    if batch is _END:
+                        break
+                    with step_annotation("to_device"):
+                        x = self._to_device(batch)
+                    metrics = self.train_step(x)
                     melk()
-                done = bool(max_steps) and step >= max_steps
-                if step % log_every == 0 or done:
-                    # float() waits for the device: only at log steps
-                    last = {k: float(v) for k, v in metrics.items()}
-                    last.update(step=step, sps=(
-                        (step - step0)
-                        / max(time.perf_counter() - t0, 1e-9)))
-                    if loader is not None:
-                        last["data_wait_frac"] = loader.wait_fraction
-                    logger.log(step, last)
-                if step % ckpt_every == 0:
-                    self.ckpt.save(step, self.state)
+                    step += 1
+                    if image_logger is not None and \
+                            image_logger.should_log(step):
+                        xrec = self.reconstruct(
+                            self.state.vae, x,
+                            torch.Generator(self.device).manual_seed(step))
+                        image_logger.log(
+                            step, inputs=to_bhwc(x).cpu().numpy(),
+                            reconstructions=to_bhwc(xrec).cpu().numpy())
+                        melk()
+                    done = bool(max_steps) and step >= max_steps
+                    if step % log_every == 0 or done:
+                        with step_annotation("log_sync"):
+                            # float() waits for the device: only at log
+                            # steps
+                            last = {k: float(v) for k, v in metrics.items()}
+                            last.update(step=step, sps=(
+                                (step - step0)
+                                / max(time.perf_counter() - t0, 1e-9)))
+                            if loader is not None:
+                                last["data_wait_frac"] = loader.wait_fraction
+                            logger.log(step, last)
+                    if step % ckpt_every == 0:
+                        with step_annotation("checkpoint"):
+                            self.ckpt.save(step, self.state)
                 if done:
                     break
         return last

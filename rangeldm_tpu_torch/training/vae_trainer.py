@@ -31,6 +31,13 @@ the discriminator's BatchNorm uses the global batch's statistics, the
 adaptive weight's two last-layer gradients and both steps' gradients are
 averaged over the ranks by an explicit all-reduce (`torch.autograd.grad`
 fires no DDP hook), and so are the metrics.
+
+Spans (utils/profiling.py): the generator step's `vae_forward` (encode,
+draw, decode), `disc_forward`, `gen_loss`, `adaptive_weight`,
+`gen_backward`, `gen_update` and `ema`; the discriminator step's
+`disc_recon` (the reconstruction without a gradient), `disc_forward` (real,
+then fake), `disc_backward` and `disc_update`; `VaeGanState.create`'s
+`optimizer` and `ema_clone`.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from rangeldm_tpu_torch.training.ema import ema_update, warmup_decay
 from rangeldm_tpu_torch.training.train_state import (
     adam_state_dict, load_adam_state,
 )
+from rangeldm_tpu_torch.utils.profiling import step_annotation
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -163,10 +171,12 @@ class VaeGanState:
         dev = next(vae.parameters()).device
         logvar = nn.Parameter(torch.tensor(float(cfg.logvar_init),
                                            device=dev))
-        ema = [p.detach().float().clone() for p in vae.parameters()]
-        return cls(0, vae, logvar, disc,
-                   adam(list(vae.parameters()) + [logvar], lr),
-                   adam(disc.parameters(), lr), ema)
+        with step_annotation("optimizer"):
+            gen_opt = adam(list(vae.parameters()) + [logvar], lr)
+            disc_opt = adam(disc.parameters(), lr)
+        with step_annotation("ema_clone"):
+            ema = [p.detach().float().clone() for p in vae.parameters()]
+        return cls(0, vae, logvar, disc, gen_opt, disc_opt, ema)
 
     def gen_named(self):
         return list(self.vae.named_parameters()) + [("logvar", self.logvar)]
@@ -289,16 +299,58 @@ def make_vae_gan_steps(cfg: VaeLossConfig,
                  generator: Optional[torch.Generator] = None) -> Metrics:
         vae, disc = state.vae.train(), state.disc.train()
         logvar = state.logvar if cfg.learn_logvar else state.logvar.detach()
-        xrec, moments = forward(vae, x, noise, generator)
-        b = x.shape[0]
+        with step_annotation("vae_forward"):
+            xrec, moments = forward(vae, x, noise, generator)
+        vox_in = vox_rec = None
+        if cfg.needs_voxels:
+            vox_in, vox_rec = voxel_fn(x), voxel_fn(xrec)
+        with step_annotation("disc_forward"), autocast(x):
+            logits_fake = disc(disc_input(xrec, vox_rec))
 
+        with step_annotation("gen_loss"):
+            nll_loss, kl_loss, g_loss, rec, extra = gen_losses(
+                x, xrec, moments, logits_fake, logvar, vox_in, vox_rec)
+
+        with step_annotation("adaptive_weight"):
+            w_last = vae.decoder.conv_out.weight
+            (nll_g,) = torch.autograd.grad(nll_loss, w_last,
+                                           retain_graph=True)
+            (g_g,) = torch.autograd.grad(g_loss, w_last, retain_graph=True)
+            all_reduce_mean_([nll_g, g_g])   # the global losses' gradients
+            d_weight = torch.clamp(
+                torch.linalg.vector_norm(nll_g)
+                / (torch.linalg.vector_norm(g_g) + 1e-4), 0.0, 1e4).detach()
+            d_weight = d_weight * cfg.disc_weight
+
+        df = disc_factor_at(state.step)
+        logvar_used = logvar.detach().clone()
+        params = [p for _, p in state.gen_named()]
+        with step_annotation("gen_backward"):
+            loss = nll_loss + d_weight * df * g_loss + cfg.kl_weight * kl_loss
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with step_annotation("gen_update"):
+            _apply(state.gen_opt, params, grads)
+
+        with step_annotation("ema"):
+            state.ema_updates += 1
+            ema_update(state.ema, vae.parameters(),
+                       warmup_decay(state.ema_updates, cfg.ema_decay))
+        state.step += 1
+        metrics = {"total_loss": loss, "nll_loss": nll_loss,
+                   "rec_loss": rec.mean(), "kl_loss": kl_loss,
+                   "g_loss": g_loss, "d_weight": d_weight,
+                   "disc_factor": torch.tensor(df, device=x.device),
+                   "logvar": logvar_used, **extra}
+        return _mean_over_ranks(metrics)
+
+    def gen_losses(x, xrec, moments, logits_fake, logvar, vox_in, vox_rec):
+        """(nll_loss, kl_loss, g_loss, the reconstruction map, the optional
+        branches' metrics) of the generator step."""
+        b = x.shape[0]
         rec = reconstruction_loss(x, xrec, cfg)
         extra: Metrics = {}
         if cfg.encoding in ("log", "inverse") and not cfg.use_rec_loss_true:
             extra["rec_loss_true"] = true_range_l1(x, xrec, cfg).mean()
-        vox_in = vox_rec = None
-        if cfg.needs_voxels:
-            vox_in, vox_rec = voxel_fn(x), voxel_fn(xrec)
         if cfg.perceptual_weight > 0:
             if cfg.bev_perceptual:
                 p_loss = perceptual_fn(bev_three_channel(vox_in),
@@ -321,56 +373,30 @@ def make_vae_gan_steps(cfg: VaeLossConfig,
             nll_loss = nll_loss + bev.sum() / b
             extra["bev_rec_loss"] = bev.mean()
         kl_loss = gaussian_kl(moments).sum() / b
-
-        with autocast(x):
-            logits_fake = disc(disc_input(xrec, vox_rec))
         g_loss = -torch.mean(logits_fake.float())
-
-        w_last = vae.decoder.conv_out.weight
-        (nll_g,) = torch.autograd.grad(nll_loss, w_last, retain_graph=True)
-        (g_g,) = torch.autograd.grad(g_loss, w_last, retain_graph=True)
-        all_reduce_mean_([nll_g, g_g])      # the global losses' gradients
-        d_weight = torch.clamp(
-            torch.linalg.vector_norm(nll_g)
-            / (torch.linalg.vector_norm(g_g) + 1e-4), 0.0, 1e4).detach()
-        d_weight = d_weight * cfg.disc_weight
-
-        df = disc_factor_at(state.step)
-        logvar_used = logvar.detach().clone()
-        loss = nll_loss + d_weight * df * g_loss + cfg.kl_weight * kl_loss
-        params = [p for _, p in state.gen_named()]
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        _apply(state.gen_opt, params, grads)
-
-        state.ema_updates += 1
-        ema_update(state.ema, vae.parameters(),
-                   warmup_decay(state.ema_updates, cfg.ema_decay))
-        state.step += 1
-        metrics = {"total_loss": loss, "nll_loss": nll_loss,
-                   "rec_loss": rec.mean(), "kl_loss": kl_loss,
-                   "g_loss": g_loss, "d_weight": d_weight,
-                   "disc_factor": torch.tensor(df, device=x.device),
-                   "logvar": logvar_used, **extra}
-        return _mean_over_ranks(metrics)
+        return nll_loss, kl_loss, g_loss, rec, extra
 
     def disc_step(state: VaeGanState, x: torch.Tensor,
                   noise: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> Metrics:
         vae, disc = state.vae, state.disc.train()
-        with torch.no_grad():
+        with step_annotation("disc_recon"), torch.no_grad():
             xrec, _ = forward(vae, x, noise, generator)
-        with autocast(x):
-            # real, then fake: the second pass starts from the running
-            # statistics the first one left
+        # real, then fake: the second pass starts from the running
+        # statistics the first one left
+        with step_annotation("disc_forward"), autocast(x):
             logits_real = disc(disc_input(x))
+        with step_annotation("disc_forward"), autocast(x):
             logits_fake = disc(disc_input(xrec))
         # gen_step advanced the step already: both halves of a batch share
         # one global step (losses/__init__.py:316-336)
         df = disc_factor_at(state.step - 1)
-        d_loss = df * d_loss_fn(logits_real, logits_fake)
         params = list(disc.parameters())
-        _apply(state.disc_opt, params,
-               torch.autograd.grad(d_loss, params, allow_unused=True))
+        with step_annotation("disc_backward"):
+            d_loss = df * d_loss_fn(logits_real, logits_fake)
+            grads = torch.autograd.grad(d_loss, params, allow_unused=True)
+        with step_annotation("disc_update"):
+            _apply(state.disc_opt, params, grads)
         return _mean_over_ranks({
             "disc_loss": d_loss, "logits_real": logits_real.float().mean(),
             "logits_fake": logits_fake.float().mean()})

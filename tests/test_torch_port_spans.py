@@ -1,9 +1,11 @@
 """The port's spans (rangeldm_tpu_torch/utils/profiling.py `step_annotation`,
-`record_span`, `spans`, `span_summary`) on the CPU: where the training and
-sampling paths put them, their parents across threads, the ring's bound,
-their clock against torch.profiler's, the idle-gap label they give
-perfbench/trace.py, and the benchmark's readers of host time by layer
-(perfbench/metrics/host_*.py, trainer_init_s.train.py)."""
+`record_span`, `spans`, `span_summary`) on the CPU: where the training,
+VAE-GAN training and sampling paths put them, their parents across
+threads, the ring's bound, their clock against torch.profiler's, the
+idle-gap label they give perfbench/trace.py, the benchmark's readers of
+host time by layer (perfbench/metrics/host_*.py, trainer_init_s.train.py),
+and its device time by span (perfbench/span_device.py and the readers
+of the VAE-GAN cell)."""
 
 import threading
 import time
@@ -337,7 +339,11 @@ def test_readers_are_listed_for_their_cells():
     for name, (record, _) in READERS.items():
         m = listed[name]
         assert m["source"] == "program_span"
-        kinds = {harness.Cell(c).kind for c in m["workloads"]}
+        # the kind of record each cell's traffic makes
+        kinds = {harness.load_module(
+            harness.BENCH_DIR / "traffic" / f"{harness.Cell(c).kind}.py",
+            "spans_test_kind_" + harness.Cell(c).kind).Traffic.kind
+            for c in m["workloads"]}
         assert kinds == {record["kind"]}
 
 
@@ -351,3 +357,133 @@ def test_replay_share_of_a_program_without_the_graphed_unet_reads_none(
         SAMPLING_RECORD, {}) is None
     assert reader("host_ms_per_unet_eval.sampling").read(
         SAMPLING_RECORD, {}) == pytest.approx(21.5)
+
+
+# -- VAE-GAN training --------------------------------------------------------
+
+VAE_CFG = {"vae": {"ch": 32, "ch_mult": [1, 2]}, "data": {"width": 32},
+           "loss": {"disc_start": 0, "disc_num_layers": 2},
+           "batch_size": 2, "tensorboard": False, "seed": 3}
+VAE_STEP_CHILDREN = ["batch_wait", "to_device", "gen_step", "disc_step"]
+GEN_CHILDREN = ["vae_forward", "disc_forward", "gen_loss",
+                "adaptive_weight", "gen_backward", "gen_update", "ema"]
+DISC_CHILDREN = ["disc_recon", "disc_forward", "disc_forward",
+                 "disc_backward", "disc_update"]
+
+
+def vae_trainer(tmp_path):
+    from rangeldm_tpu_torch.train_vae import VaeTrainer
+    return VaeTrainer(dict(VAE_CFG, output_dir=str(tmp_path)), device="cpu")
+
+
+def vae_batches(n):
+    rng = np.random.default_rng(4)
+    return [rng.standard_normal((2, 32, 32, 2)).astype(np.float32)
+            for _ in range(n)]
+
+
+def named(ring, parent):
+    return [s.name for s in sorted(children(ring, parent),
+                                   key=lambda s: s.start_ns)]
+
+
+def test_vae_gan_fit_leaves_a_train_step_root_per_step(tmp_path):
+    tr = vae_trainer(tmp_path)
+    tr.fit(iter(vae_batches(3)), log_every=2)
+    ring = spans()
+    init, = [s for s in ring if s.name == "trainer_init"]
+    assert init.parent == 0
+    assert sorted(s.name for s in children(ring, init)) == [
+        "build_models", "ema_clone", "optimizer"]
+    roots = [s for s in ring if s.name == "train_step"]
+    assert len(roots) == 3 and all(r.parent == 0 for r in roots)
+    for i, root in enumerate(roots):
+        kids = named(ring, root)
+        # the log's sync at step 2
+        assert kids == VAE_STEP_CHILDREN + (["log_sync"] if i == 1 else [])
+        gen, = [s for s in children(ring, root) if s.name == "gen_step"]
+        disc, = [s for s in children(ring, root) if s.name == "disc_step"]
+        assert named(ring, gen) == GEN_CHILDREN
+        assert named(ring, disc) == DISC_CHILDREN
+        assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+                   for s in children(ring, root))
+    # the exhausted iterator's last pull leaves nothing
+    assert span_summary()["spans"]["batch_wait"]["count"] == 3
+
+
+def test_vae_gan_steps_are_bit_equal_under_a_profiler(tmp_path):
+    runs = []
+    for k, traced in enumerate((False, True)):
+        tr = vae_trainer(tmp_path / str(k))
+        if traced:
+            with profile(activities=[ProfilerActivity.CPU]):
+                last = tr.fit(iter(vae_batches(3)), log_every=3)
+        else:
+            last = tr.fit(iter(vae_batches(3)), log_every=3)
+        st = tr.state
+        runs.append((last, [t.clone() for t in (
+            *st.vae.parameters(), *st.disc.parameters(),
+            *st.disc.buffers(), *st.ema)]))
+    (m0, t0), (m1, t1) = runs
+    # every logged metric but the steps per second
+    assert m0.pop("sps") > 0 and m1.pop("sps") > 0
+    assert m0 == m1
+    assert all(torch.equal(a, b) for a, b in zip(t0, t1))
+
+
+def test_device_time_goes_to_the_span_that_launched_it():
+    """Planted operations: a launch from another thread's time inside the
+    main thread's span goes to that span; overlapping operations count
+    each instant once, so the spans sum to the busy time; an operation
+    with no launch goes to "(none)"."""
+    from perfbench import span_device
+    main = [("train_step", 0, 1000), ("gen_step", 10, 500),
+            ("gen_backward", 200, 400), ("disc_step", 500, 900)]
+    launches = {1: 20, 2: 250, 3: 260, 4: 600}
+    # (start, end, correlation) in ns
+    ops = [(100, 300, 1), (300, 500, 2), (450, 520, 3), (700, 800, 4),
+           (900, 950, 9)]
+    got = span_device.attribute(ops, launches, main)
+    assert got == pytest.approx({"gen_step": 200e-6,
+                                 "gen_backward": 220e-6,
+                                 "disc_step": 100e-6, "(none)": 50e-6})
+    busy = sum(e - s for s, e in bench_trace.union(
+        (s, e) for s, e, _ in ops))
+    assert sum(got.values()) == pytest.approx(busy / 1e6)
+
+
+def test_device_time_by_span_of_a_profiled_fit(tmp_path):
+    """On the CPU the profile has no device operation: the attribution is
+    empty and sums to no more than the busy time (0); the main thread's
+    spans are found from the last `train_step` root."""
+    from perfbench import span_device
+    tr = vae_trainer(tmp_path)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tr.fit(iter(vae_batches(2)), log_every=50)
+    by_span = span_device.by_span(prof)
+    busy = bench_trace.reduce(*bench_trace.from_profile(prof))["busy_s"]
+    assert by_span == {} and sum(by_span.values()) <= busy * 1e3
+    names = {n for n, _, _ in span_device.main_thread_spans(
+        spans(), "train_step")}
+    assert {"gen_backward", "disc_recon", "trainer_init"} <= names
+
+
+VAE_GAN_READERS = {
+    "disc_device_ms_per_step.vae_gan": 2 * (10 + 20 + 5) / 2,
+    "vae_fwd_device_ms_per_step.vae_gan": 2 * (30 + 8) / 2,
+}
+
+
+@pytest.mark.parametrize("name", sorted(VAE_GAN_READERS))
+def test_vae_gan_device_readers(name):
+    by_span = {"disc_forward": 20.0, "disc_backward": 40.0,
+               "adaptive_weight": 10.0, "vae_forward": 60.0,
+               "disc_recon": 16.0, "gen_backward": 500.0, "(none)": 1.0}
+    record = dict(TRAIN_RECORD, device_ms_by_span=by_span)
+    read = reader(name).read
+    assert read(record, {}) == pytest.approx(VAE_GAN_READERS[name])
+    # the parent's record: no spans, or none of the named ones
+    assert read(dict(TRAIN_RECORD, device_ms_by_span=None), {}) is None
+    assert read(dict(TRAIN_RECORD, device_ms_by_span={"(none)": 5.0}),
+                {}) is None
+    assert read(SAMPLING_RECORD, {}) is None
