@@ -15,36 +15,27 @@ CUDA tensor, `t` a Python integer, grad off (inference mode or no_grad) and
 autocast off for CUDA (autocast's cache of cast weights cannot be
 captured). Anywhere else it calls the module as it is.
 
-A key (device, shape, dtype) runs eager at its first evaluation, so that
-cuDNN's choice of algorithms, the kernels' one-time attributes and the
-libraries' lazy set-up happen outside a capture; its second evaluation is
-captured, on a side stream of its device, and replayed; every later one is
-replayed. A replay copies `x` into the graph's static input, writes `t`
-into its static timestep on the device (no copy from the host), replays
-and returns a copy of the static output, which the next replay overwrites.
+A key (device, shape, dtype) runs eager at its first evaluation, is
+captured at its second and replayed at every later one, at most MAX_GRAPHS
+keys a replica (utils/graphs.py `GraphCache`, which the training step
+shares). A replay copies `x` into the graph's static input, writes `t` into
+its static timestep on the device (no copy from the host), replays and
+returns a copy of the static output, which the next replay overwrites.
 Random draws stay outside: the samplers draw their noise around the model
-function. At most MAX_GRAPHS graphs are kept per replica, the least
-recently used dropped first, so varied batch sizes do not pile up memory
-pools.
+function.
 
 Each evaluation records one span, a child of the caller's `unet_eval`:
 `unet_graph_replay`, `unet_graph_capture` (the capture and its first
-replay) or `unet_eager`. A replay passes through none of the kernels'
-Python wrappers, so it adds to `ops.kernels.LAUNCHES` the launches that its
-capture counted.
+replay) or `unet_eager`; a replay adds to `ops.kernels.LAUNCHES` the
+launches that its capture counted.
 """
 
 from __future__ import annotations
 
-import collections
-from typing import Dict, Tuple
-
 import torch
 
-from rangeldm_tpu_torch.ops import kernels
+from rangeldm_tpu_torch.utils.graphs import MAX_GRAPHS, Captured, GraphCache
 from rangeldm_tpu_torch.utils.profiling import step_annotation
-
-MAX_GRAPHS = 4
 
 
 def _graphable(x: torch.Tensor, t) -> bool:
@@ -54,63 +45,35 @@ def _graphable(x: torch.Tensor, t) -> bool:
             and not torch.is_autocast_enabled("cuda"))
 
 
-class _Graph:
-    """One captured evaluation of `module` at x's shape and dtype: its
-    static input, timestep and output, and the hand-written kernels'
-    launches that one evaluation counts."""
+class _Graph(Captured):
+    """One captured evaluation of `module` at x's shape and dtype, with
+    its static input and timestep."""
 
     def __init__(self, module, x: torch.Tensor):
         self.x = torch.empty_like(x)
         self.t = torch.empty((), dtype=torch.int64, device=x.device)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(x.device):
-            before = dict(kernels.LAUNCHES)
-            with torch.cuda.graph(self.graph,
-                                  stream=torch.cuda.Stream(x.device)):
-                self.out = module(self.x, self.t)
-        self.launches: Dict[str, int] = {
-            name: n - before.get(name, 0)
-            for name, n in kernels.LAUNCHES.items()
-            if n != before.get(name, 0)}
+        super().__init__(lambda: module(self.x, self.t), x.device)
 
     def run(self, x: torch.Tensor, t: int) -> torch.Tensor:
-        with torch.cuda.device(x.device):
-            self.x.copy_(x)
-            self.t.fill_(t)
-            self.graph.replay()
-            return self.out.clone()
+        self.x.copy_(x)
+        self.t.fill_(t)
+        self.replay()
+        return self.out.clone()
 
 
-class GraphedUNet:
+class GraphedUNet(GraphCache):
     """`model_fn(x, t)` over one UNet replica that replays a captured CUDA
     graph of the evaluation where it can (module docstring)."""
 
     def __init__(self, module: torch.nn.Module):
+        super().__init__("unet")
         self.module = module
-        # key -> _Graph, least recently used first
-        self._graphs: "collections.OrderedDict[Tuple, _Graph]" = (
-            collections.OrderedDict())
-        self._warm = set()          # keys evaluated once, eagerly
 
     def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
         if not _graphable(x, t):
             with step_annotation("unet_eager"):
                 return self.module(x, t)
-        key = (x.device, tuple(x.shape), x.dtype)
-        graph = self._graphs.get(key)
-        if graph is not None:
-            with step_annotation("unet_graph_replay"):
-                self._graphs.move_to_end(key)
-                out = graph.run(x, t)
-                for name, n in graph.launches.items():
-                    kernels.LAUNCHES[name] = kernels.LAUNCHES.get(name, 0) + n
-                return out
-        if key not in self._warm:
-            self._warm.add(key)
-            with step_annotation("unet_eager"):
-                return self.module(x, t)
-        with step_annotation("unet_graph_capture"):
-            graph = self._graphs[key] = _Graph(self.module, x)
-            if len(self._graphs) > MAX_GRAPHS:
-                self._graphs.popitem(last=False)
-            return graph.run(x, t)
+        return self.run((x.device, tuple(x.shape), x.dtype),
+                        eager=lambda: self.module(x, t),
+                        capture=lambda: _Graph(self.module, x),
+                        replay=lambda graph: graph.run(x, t))

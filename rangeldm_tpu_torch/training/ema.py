@@ -10,12 +10,15 @@
   decay(n) = min(decay, (1 + n) / (10 + n)); the VAE trainer's law.
 
 The decays are host floats computed in float32, as the JAX package computes
-them; `ema_update` moves f32 shadow tensors in place with foreach kernels.
+them; `ema_update` moves f32 shadow tensors in place with foreach kernels,
+by the weight `ema_weight(decay)` = 1 - decay: a float, or a 0-dim tensor
+on the shadow's device that a captured CUDA graph reads at each replay
+(the training step writes it before the step).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Iterable, List, Union
 
 import numpy as np
 import torch
@@ -37,12 +40,18 @@ def warmup_decay(num_updates: int, decay: float = 0.9999) -> float:
     return float(min(f32(decay), (f32(1) + n) / (f32(10) + n)))
 
 
+def ema_weight(decay: float) -> float:
+    """1 - decay in float32: the parameters' weight in an EMA update."""
+    return float(f32(1) - f32(decay))
+
+
 @torch.no_grad()
 def ema_update(shadow: List[torch.Tensor], params: Iterable[torch.Tensor],
-               decay: float) -> None:
-    """shadow <- shadow - (1 - decay) * (shadow - param), in place."""
-    one_minus = float(f32(1) - f32(decay))
+               weight: Union[float, torch.Tensor]) -> None:
+    """shadow <- shadow - weight * (shadow - param), in place, with
+    weight = ema_weight(decay) as a float or a 0-dim float32 tensor on the
+    shadow's device (the same update, bit for bit)."""
     diff = torch._foreach_sub(
         shadow, [p.detach().to(s.dtype) for s, p in zip(shadow, params)])
-    torch._foreach_mul_(diff, one_minus)
+    torch._foreach_mul_(diff, weight)
     torch._foreach_sub_(shadow, diff)

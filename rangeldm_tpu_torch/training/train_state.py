@@ -13,7 +13,14 @@ gradient clipping and a warm-up learning-rate schedule
   made before it, so with a warm-up the first update has learning rate 0;
 * `torch.optim.AdamW` makes optax's `adamw` update: bias-corrected moments,
   eps outside the square root, weight decay decoupled and scaled by the
-  learning rate.
+  learning rate. It is the fused implementation: one multi-tensor kernel
+  updates every parameter, with its update count in a device tensor and
+  no host synchronisation, eager or captured. On CUDA it is also
+  `capturable` (a flag that lets a CUDA graph hold the update; the fused
+  kernel is the same either way) and reads its learning rate from a 0-dim
+  device tensor, so that a CUDA graph can hold the whole training step
+  (training/ldm_trainer.py); `TrainState.set_learning_rate` writes the
+  step's learning rate into that tensor before the step.
 """
 
 from __future__ import annotations
@@ -74,7 +81,9 @@ def make_adamw(params: Iterable[torch.nn.Parameter],
                weight_decay: float = 1e-6, eps: float = 1e-8,
                grad_clip: float = 1.0) -> Tx:
     """AdamW + clip + learning-rate schedule over `params`, as the JAX
-    package's `make_adamw`."""
+    package's `make_adamw`: fused; capturable, with its learning rate in a
+    0-dim device tensor, where every parameter is on CUDA."""
+    params = list(params)
     if schedule == "cosine":
         lr = warmup_cosine_schedule(learning_rate, warmup_steps,
                                     max(total_steps, warmup_steps + 1))
@@ -82,8 +91,12 @@ def make_adamw(params: Iterable[torch.nn.Parameter],
         lr = warmup_constant_schedule(learning_rate, warmup_steps)
     else:
         raise ValueError(schedule)
-    opt = torch.optim.AdamW(params, lr=lr(0), betas=(beta1, beta2), eps=eps,
-                            weight_decay=weight_decay)
+    capturable = bool(params) and all(p.is_cuda for p in params)
+    opt = torch.optim.AdamW(
+        params, lr=(torch.tensor(lr(0), device=params[0].device)
+                    if capturable else lr(0)),
+        betas=(beta1, beta2), eps=eps, weight_decay=weight_decay,
+        capturable=capturable, fused=True)
     return Tx(opt, lr, float(grad_clip))
 
 
@@ -125,7 +138,25 @@ def adam_state_dict(optimizer: torch.optim.Optimizer, named_params,
 def load_adam_state(optimizer: torch.optim.Optimizer, named_params,
                     sd: Dict[str, Any], prefix: str) -> None:
     """Restore what `adam_state_dict` wrote, keeping the optimizer's
-    parameter groups and hyperparameters."""
+    parameter groups and hyperparameters. Where the optimizer already holds
+    moments for exactly the parameters that `sd` holds them for, they and
+    the update counts are copied into the existing tensors, in place: a
+    captured CUDA graph of the step keeps writing to those tensors and to
+    the groups' learning-rate tensors. Otherwise (no update made yet, or
+    other parameters) the state is loaded through `load_state_dict`."""
+    named_params = list(named_params)
+    saved = [(n, p) for n, p in named_params
+             if f"{prefix}/exp_avg/{n}" in sd]
+    held = {id(p) for p, st in optimizer.state.items() if "exp_avg" in st}
+    if saved and held == {id(p) for _, p in saved}:
+        count = float(sd[f"{prefix}_count"])
+        with torch.no_grad():
+            for name, p in saved:
+                st = optimizer.state[p]
+                st["exp_avg"].copy_(sd[f"{prefix}/exp_avg/{name}"])
+                st["exp_avg_sq"].copy_(sd[f"{prefix}/exp_avg_sq/{name}"])
+                st["step"].fill_(count)
+        return
     opt = optimizer.state_dict()
     index = {id(p): i for i, p in enumerate(
         p for group in optimizer.param_groups for p in group["params"])}
@@ -167,20 +198,30 @@ class TrainState:
                 ema = [p.detach().float().clone() for p in model.parameters()]
         return cls(0, model, tx.optimizer, tx.schedule, ema, tx.grad_clip)
 
+    def set_learning_rate(self) -> None:
+        """The schedule's learning rate at the pre-increment step into
+        every parameter group: written into the group's 0-dim device tensor
+        where it holds one (capturable AdamW, whose captured update reads it
+        at each replay), else set as a float."""
+        lr = self.schedule(self.step)
+        for group in self.optimizer.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+
     def apply_gradients(self) -> torch.Tensor:
         """One optimizer update from the parameters' gradients: the global
         norm (returned, taken before the clip), the clip, then AdamW at the
-        learning rate of the pre-increment step. The step count is the
-        caller's to advance."""
+        learning rate that `set_learning_rate` wrote. It reads nothing of
+        the host that changes from step to step; the learning rate and the
+        step count are the caller's to write and to advance."""
         with step_annotation("clip"):
             grads = [p.grad for p in self.model.parameters()
                      if p.grad is not None]
             norm = global_norm(grads)
             clip_by_global_norm_(grads, self.grad_clip, norm)
         with step_annotation("adamw"):
-            lr = self.schedule(self.step)
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
             self.optimizer.step()
         return norm
 
@@ -217,8 +258,12 @@ class TrainState:
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         """Restore what `state_dict` returned, in place: the model's and
-        the EMA's tensors are copied into the existing ones, so the
-        optimizer keeps its parameters."""
+        the EMA's tensors, and AdamW's moments and update counts where it
+        holds them already (`load_adam_state`), are copied into the
+        existing ones, and the generator's state is set on the same
+        generator. So the optimizer keeps its parameters, and a CUDA graph
+        that the train step captured before the load stays valid: it
+        replays from the restored state."""
         self.model.load_state_dict(
             {k[len("model/"):]: v for k, v in sd.items()
              if k.startswith("model/")}, strict=True)

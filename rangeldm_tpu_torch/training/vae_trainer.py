@@ -54,7 +54,9 @@ from rangeldm_tpu_torch.models.vae import (
     AutoencoderKL, gaussian_kl, gaussian_sample,
 )
 from rangeldm_tpu_torch.parallel.mesh import all_reduce_mean_, global_draw
-from rangeldm_tpu_torch.training.ema import ema_update, warmup_decay
+from rangeldm_tpu_torch.training.ema import (
+    ema_update, ema_weight, warmup_decay,
+)
 from rangeldm_tpu_torch.training.train_state import (
     adam_state_dict, load_adam_state,
 )
@@ -333,8 +335,8 @@ def make_vae_gan_steps(cfg: VaeLossConfig,
 
         with step_annotation("ema"):
             state.ema_updates += 1
-            ema_update(state.ema, vae.parameters(),
-                       warmup_decay(state.ema_updates, cfg.ema_decay))
+            ema_update(state.ema, vae.parameters(), ema_weight(
+                warmup_decay(state.ema_updates, cfg.ema_decay)))
         state.step += 1
         metrics = {"total_loss": loss, "nll_loss": nll_loss,
                    "rec_loss": rec.mean(), "kl_loss": kl_loss,

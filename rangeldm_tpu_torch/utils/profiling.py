@@ -21,9 +21,10 @@ boundaries only:
 
     sample_call > unet_eval (> unet_graph_replay, unet_graph_capture or
                   unet_eager), sampler_update, vae_decode, to_host
-    train_step > batch_wait (> loader_wait), to_device, encode, forward,
-                 backward, clip, adamw, ema, log_sync, checkpoint,
-                 sample_dump
+    train_step > batch_wait (> loader_wait), to_device, one of
+                 train_graph_replay, train_graph_capture or train_eager
+                 (the last two > encode, forward, backward, clip, adamw,
+                 ema), log_sync, checkpoint, sample_dump
     trainer_init > build_models, optimizer, ema_clone
 
 `spans()` reads the ring, `span_summary()` sums it by name beside

@@ -700,3 +700,182 @@ def test_graphed_pipeline_calls_equal_eager_ones_bit_for_bit(
     assert (torch.device("cuda", 0), (batch, runner.module.cfg.in_channels,
                                       256, 16), torch.bfloat16) in \
         runner._graphs
+
+
+# ---------------------------------------------------------------------------
+# the training step replayed from a CUDA graph (training/ldm_trainer.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 5
+GRAPH_KINDS = ("train_eager", "train_graph_capture", "train_graph_replay")
+
+
+def _flagship_steps(tmp_path, name, resume=False):
+    """GRAPH_STEPS flagship steps (chip_smoke's TRAIN_CFG, bf16) at batch
+    4 from the trainer's seeded start, through `LdmTrainer.train_step`:
+    each step's loss and gradient norm, and the latents, noise and
+    timesteps that reached `add_noise` (recorded into buffers by copies,
+    which a capture records too); the state after step 3 and after the
+    last; the attention launches and the graph spans. With `resume`, the
+    state after step 3 is loaded back in place and steps 4 and 5 run
+    again; their state is returned as well."""
+    from chip_smoke import TRAIN_CFG
+    from rangeldm_tpu_torch.train_ldm import LdmTrainer
+    from rangeldm_tpu_torch.utils import profiling
+
+    trainer = LdmTrainer(dict(TRAIN_CFG, output_dir=str(tmp_path / name),
+                              train_batch_size=4), device="cuda")
+    h, w = trainer.spec.image_size
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batches = [trainer._to_device({"jpg": torch.randn(
+        (4, h, w, 2), generator=gen, device="cuda")})
+        for _ in range(GRAPH_STEPS)]
+    add_noise, buffers = trainer.schedule.add_noise, []
+
+    def recording(x0, noise, t):
+        if not buffers:
+            buffers.extend(torch.empty_like(v) for v in (x0, noise, t))
+        for buf, v in zip(buffers, (x0, noise, t)):
+            buf.copy_(v)
+        return add_noise(x0, noise, t)
+
+    trainer.schedule.add_noise = recording
+    state = trainer.state
+    out = {"loss": [], "grad_norm": [], "draws": []}
+
+    def steps(feed):
+        for batch in feed:
+            m = trainer.train_step(state, batch, state.generator)
+            out["loss"].append(m["loss"])
+            out["grad_norm"].append(m["grad_norm"])
+            out["draws"].append([b.clone() for b in buffers])
+            if state.step == 3:
+                out["at_3"] = state.state_dict()
+
+    profiling._RING.clear()
+    kernels.reset_launches()
+    steps(batches)
+    torch.cuda.synchronize()
+    out["launches"] = (kernels.LAUNCHES[KERNEL], kernels.LAUNCHES[BWD_KERNEL])
+    out["state"] = state.state_dict()
+    out["kinds"] = [s.name for s in profiling.spans()
+                    if s.name in GRAPH_KINDS]
+    if resume:
+        state.load_state_dict(out["at_3"])
+        profiling._RING.clear()
+        steps(batches[3:])
+        out["resumed"] = state.state_dict()
+        out["resumed_kinds"] = [s.name for s in profiling.spans()
+                                if s.name in GRAPH_KINDS]
+    return out
+
+
+def _gap(got, want) -> float:
+    """The largest |got - want| over the largest |want|, over pairs of
+    tensors (state dicts: their model, EMA and moment entries)."""
+    if isinstance(want, dict):
+        keys = [k for k in want if k.startswith(("model/", "ema/", "adam/"))]
+        return max(_gap(got[k], want[k]) for k in keys)
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = want.abs().max().item()
+    return (got - want).abs().max().item() / max(scale, 1e-30)
+
+
+def test_graphed_train_steps_equal_eager_ones(tmp_path, monkeypatch):
+    """Five flagship steps replayed from the step's CUDA graph (eager,
+    capture, three replays) against five eager ones from the same seeded
+    state, and two eager runs against each other for the floor, with
+    deterministic cuDNN: the noise and timesteps bit for bit and the
+    generator's state after them; the latents, losses, gradient norms,
+    parameters, EMA and AdamW's moments within twice the eager floor (0
+    where the eager runs agree bit for bit); the attention launches of the
+    replays counted; and the state saved at step 3, loaded back in place,
+    replays steps 4 and 5 to the uninterrupted run's state."""
+    from rangeldm_tpu_torch.training import ldm_trainer
+
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(ldm_trainer, "_graphable", lambda tensors, given: False)
+            eager = [_flagship_steps(tmp_path, f"eager{i}") for i in (1, 2)]
+        graphed = _flagship_steps(tmp_path, "graphed", resume=True)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    a, b = eager
+    assert a["kinds"] == b["kinds"] == ["train_eager"] * GRAPH_STEPS
+    assert graphed["kinds"] == ["train_eager", "train_graph_capture"] + [
+        "train_graph_replay"] * (GRAPH_STEPS - 2)
+    assert graphed["resumed_kinds"] == ["train_graph_replay"] * 2
+    assert a["launches"] == graphed["launches"] == (16 * GRAPH_STEPS,) * 2
+    assert a["state"]["generator"] == graphed["state"]["generator"]
+    assert graphed["resumed"]["generator"] == graphed["state"]["generator"]
+    for (lat_a, noise_a, t_a), (lat_g, noise_g, t_g), (lat_b, _, _) in zip(
+            a["draws"], graphed["draws"], b["draws"]):
+        assert torch.equal(noise_a, noise_g) and torch.equal(t_a, t_g)
+        assert _gap(lat_g, lat_a) <= 2 * _gap(lat_b, lat_a)
+    for key in ("loss", "grad_norm"):
+        floor = max(_gap(x, y) for x, y in zip(b[key], a[key]))
+        got = max(_gap(x, y) for x, y in zip(graphed[key][:GRAPH_STEPS],
+                                              a[key]))
+        assert got <= 2 * floor, (key, got, floor)
+    floor = _gap(b["state"], a["state"])
+    assert _gap(graphed["state"], a["state"]) <= 2 * floor
+    assert _gap(graphed["resumed"], graphed["state"]) <= 2 * floor
+    # a replayed loss is the graph's copy: the next replay left it alone;
+    # the resumed steps 4 and 5 read the losses they read before
+    losses = [float(v) for v in graphed["loss"]]
+    assert len(set(losses[:GRAPH_STEPS])) == GRAPH_STEPS
+    floor = max(_gap(x, y) for x, y in zip(b["loss"], a["loss"]))
+    for x, y in zip(graphed["loss"][GRAPH_STEPS:], graphed["loss"][3:]):
+        assert _gap(x, y) <= 2 * floor
+
+
+@pytest.mark.parametrize("mode", ["accum", "upsample", "inpainting"])
+def test_graphed_steps_of_each_mode_equal_eager_ones(mode, monkeypatch):
+    """Gradient accumulation and the upsample and inpainting conditions
+    captured on the card, with the tiny VAE and UNet of
+    tests/test_torch_port_train_graph.py (whose CPU stand-in re-runs the
+    step's Python, so only a real capture shows a host synchronisation, an
+    op that cannot be captured or a host value frozen into the graph):
+    five graphed steps (eager, capture, three replays) against two eager
+    runs from the same state, with deterministic cuDNN. The generator's
+    state equal; the losses, gradient norms, parameters, EMA and AdamW's
+    moments within twice the eager floor (0 where the eager runs agree bit
+    for bit); each replayed loss a copy of its own."""
+    import test_torch_port_train_graph as tiny
+    from rangeldm_tpu_torch.training import ldm_trainer
+    from rangeldm_tpu_torch.utils import profiling
+
+    def steps():
+        state, step = tiny.setup(mode, "cuda")
+        feed = tiny.batches(mode, GRAPH_STEPS, device="cuda")
+        profiling._RING.clear()
+        out = tiny.run(state, step, feed)
+        torch.cuda.synchronize()
+        kinds = [s.name for s in profiling.spans() if s.name in GRAPH_KINDS]
+        return out, state.state_dict(), kinds
+
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(ldm_trainer, "_graphable", lambda tensors, given: False)
+            (a, sa, ka), (b, sb, kb) = steps(), steps()
+        g, sg, kg = steps()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    assert ka == kb == ["train_eager"] * GRAPH_STEPS
+    assert kg == ["train_eager", "train_graph_capture"] + [
+        "train_graph_replay"] * (GRAPH_STEPS - 2)
+    assert sa["generator"] == sg["generator"]
+    for key in ("loss", "grad_norm"):
+        floor = max(_gap(x[key], y[key]) for x, y in zip(b, a))
+        got = max(_gap(x[key], y[key]) for x, y in zip(g, a))
+        assert got <= 2 * floor, (key, got, floor)
+    assert _gap(sg, sa) <= 2 * _gap(sb, sa)
+    assert len({float(x["loss"]) for x in g}) == GRAPH_STEPS

@@ -38,8 +38,9 @@ TRAIN_CFG = {
     "train_batch_size": 2, "lr_warmup_steps": 1, "tensorboard": False,
 }
 IMAGE = (16, 128)
-STEP_CHILDREN = ["batch_wait", "to_device", "encode", "forward", "backward",
-                 "clip", "adamw", "ema"]
+STEP_CHILDREN = ["batch_wait", "to_device", "train_eager"]
+# the eager step's phases (a CPU step is never graphed)
+EAGER_CHILDREN = ["encode", "forward", "backward", "clip", "adamw", "ema"]
 METRICS = harness.BENCH_DIR / "metrics"
 
 
@@ -86,6 +87,9 @@ def test_fit_leaves_a_train_step_root_per_step(tmp_path):
         assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
                    for s in kids)
         assert sum(dur(s) for s in kids) <= dur(root)
+        phases = sorted(children(ring, kids[-1]), key=lambda s: s.start_ns)
+        assert [s.name for s in phases] == EAGER_CHILDREN
+        assert sum(dur(s) for s in phases) <= dur(kids[-1])
     for stats in summary.values():
         assert 0 <= stats["self_ms"] <= stats["total_ms"]
     # the exhausted iterator's last pull leaves nothing
@@ -105,11 +109,13 @@ def test_micro_batches_and_the_loader_wait(tmp_path):
     ring = spans()
     by_id = {s.id: s for s in ring}
     for root in [s for s in ring if s.name == "train_step"]:
-        names = [s.name for s in sorted(children(ring, root),
+        kids = sorted(children(ring, root), key=lambda s: s.start_ns)
+        assert [s.name for s in kids] == ["batch_wait", "to_device",
+                                          "train_eager", "log_sync"]
+        names = [s.name for s in sorted(children(ring, kids[2]),
                                         key=lambda s: s.start_ns)]
-        assert names == ["batch_wait", "to_device", "encode", "forward",
-                         "backward", "forward", "backward", "clip",
-                         "adamw", "ema", "log_sync"]
+        assert names == ["encode", "forward", "backward", "forward",
+                         "backward", "clip", "adamw", "ema"]
     waits = [s for s in ring if s.name == "loader_wait"]
     assert len(waits) == 3
     assert all(by_id[s.parent].name == "batch_wait" for s in waits)
@@ -230,9 +236,11 @@ def test_an_idle_gap_in_a_span_takes_its_name():
 
 # -- the benchmark's readers -----------------------------------------------
 
-def _planted_train_ring():
+def _planted_train_ring(graph=True):
     """trainer_init (2.5 s), 3 set-up steps, 4 window steps, 2 profiled
-    steps; each step's children last what the table below says."""
+    steps; each step's children last what the table below says, beside
+    the step's graph span (`graph`: none, as on a program without the
+    graphed step)."""
     ring, ids = [], iter(range(1, 10_000))
     t = 0
 
@@ -251,8 +259,10 @@ def _planted_train_ring():
         (1, 2, 3, 1, 1, 1, 0), (2, 2, 3, 1, 2, 1, 0),
         (3, 2, 3, 1, 3, 1, 8), (4, 2, 3, 1, 4, 1, 0),
     ] + [(50, 50, 50, 50, 50, 50, 0)] * 2
-    for row in plan:
+    for row, kind in zip(plan, STEP_GRAPH_PLAN):
         root = add("train_step", 500)
+        if graph:
+            add(kind, 1, root.id)
         for name, ms in zip(("encode", "forward", "backward", "clip",
                              "adamw", "ema", "log_sync"), row):
             if ms:
@@ -260,6 +270,12 @@ def _planted_train_ring():
     return ring
 
 
+# the graphed step's span under each step: set-up's 3, the window's 4
+# (replay shares 100, 0, 100, 100), the profiled 2
+STEP_GRAPH_PLAN = (["train_eager", "train_graph_capture",
+                    "train_graph_replay"]
+                   + ["train_graph_replay", "train_eager"]
+                   + ["train_graph_replay"] * 4)
 # the graphed model function's span under each call's 4 evaluations
 EAGER, CAPTURE, REPLAY = ("unet_eager", "unet_graph_capture",
                           "unet_graph_replay")
@@ -302,6 +318,8 @@ READERS = {
     "host_ms_per_unet_eval.sampling": (SAMPLING_RECORD, 21.5),
     # window calls' replays: 4, 3 (and a capture), 4 of 4 -> 100, 75, 100
     "unet_graph_replay_share.sampling": (SAMPLING_RECORD, 100.0),
+    # window steps' replays: 1, 0, 1, 1 of 1 -> 100, 0, 100, 100
+    "train_graph_replay_share.train": (TRAIN_RECORD, 100.0),
 }
 
 
@@ -357,6 +375,18 @@ def test_replay_share_of_a_program_without_the_graphed_unet_reads_none(
         SAMPLING_RECORD, {}) is None
     assert reader("host_ms_per_unet_eval.sampling").read(
         SAMPLING_RECORD, {}) == pytest.approx(21.5)
+
+
+def test_replay_share_of_a_program_without_the_graphed_step_reads_none(
+        monkeypatch):
+    """The parent's ring: `train_step` roots with no graph span under
+    them; the other train readers read as before."""
+    ring = _planted_train_ring(graph=False)
+    monkeypatch.setattr(profiling, "spans", lambda: list(ring))
+    assert reader("train_graph_replay_share.train").read(
+        TRAIN_RECORD, {}) is None
+    assert reader("host_model_ms_per_step.train").read(
+        TRAIN_RECORD, {}) == pytest.approx(7.5)
 
 
 # -- VAE-GAN training --------------------------------------------------------

@@ -43,6 +43,7 @@ from rangeldm_tpu_torch.pipelines import RangePipeline
 from rangeldm_tpu_torch.training import conditions, ema
 from rangeldm_tpu_torch.training.ldm_trainer import (
     LdmTrainConfig, apply_updates_and_ema, make_ldm_train_step,
+    step_ema_weight,
 )
 from rangeldm_tpu_torch.training.train_state import TrainState, make_adamw
 from test_torch_port_common import (
@@ -225,7 +226,10 @@ def test_optimizer_and_ema_match_optax(schedule, norm):
     for g in grads:
         for p, u in zip(model, g):
             p.grad = torch.from_numpy(u.copy())
-        out = apply_updates_and_ema(state, torch.zeros(()), cfg)
+        state.set_learning_rate()
+        out = apply_updates_and_ema(state, torch.zeros(()),
+                                    step_ema_weight(state.step, cfg))
+        state.step += 1
         np.testing.assert_allclose(float(out["grad_norm"]), norm, rtol=1e-5)
     assert state.step == 5
     for p, e, want_p, want_e in zip(model, state.ema, jp, jema):
