@@ -50,7 +50,7 @@ Phases, each printing one JSON line:
                  in f32 (the trainer's own TF32 setting: cuDNN's on, as in
                  the published runs) past disc_start 2, a resume from step 3
                  bit-equal to them, validation, the sgm weights through
-                 train_ldm.load_vae, eval_vae on the held-out scans, 4
+                 convert.load_vae, eval_vae on the held-out scans, 4
                  steps in bf16, a profile of a step, and small steps on the
                  card against the CPU; no attention kernel on this path
   9c. ddp      - data parallelism over torch.distributed, in worker
@@ -1360,12 +1360,12 @@ def phase_vae_train(data_root: str, smi) -> dict:
     f32 (with the trainer's TF32 setting, which `VaeTrainer` sets around
     each step whatever this process set: cuDNN's on, matrix products'
     off); the held-out validation; vae_sgm.safetensors through
-    train_ldm.load_vae; eval_vae on the held-out scans; a profile of two
+    convert.load_vae; eval_vae on the held-out scans; a profile of two
     steps; run D to step 6 and run B resumed from D's checkpoint_3, both
     with deterministic algorithms, B bit-equal to D; run C in bf16; and one
     small generator and discriminator step on the card against the CPU."""
     from torch.profiler import ProfilerActivity, profile
-    from rangeldm_tpu_torch import eval_vae, train_ldm, train_vae
+    from rangeldm_tpu_torch import convert, eval_vae, train_vae
     from rangeldm_tpu_torch.models.discriminator import (
         NLayerDiscriminatorMetaKernel,
     )
@@ -1449,11 +1449,11 @@ def phase_vae_train(data_root: str, smi) -> dict:
 
         # save_final's weights through the second stage's loader
         sgm = os.path.join(tmp, "a", "vae_sgm.safetensors")
-        loaded = train_ldm.load_vae(sgm)
+        loaded = convert.load_vae(sgm)
         require(loaded.cfg == trainer.vae_cfg and not state_equal(
             {k: v.cpu() for k, v in state.vae.state_dict().items()},
             loaded.state_dict()), "vae_sgm.safetensors does not load back "
-                                  "through train_ldm.load_vae")
+                                  "through convert.load_vae")
         fields["vae_sgm_bytes"] = os.path.getsize(sgm)
 
         # eval_vae on the held-out scans
@@ -1905,7 +1905,7 @@ def phase_t64(models, smi):
     against the same model with those layers on `attention_t_reference`
     (the JAX package sends T <= 64 to an f32 softmax). Reports the max-abs
     difference of each; no bound, the difference is by design."""
-    from rangeldm_tpu_torch import sample_ldm
+    from rangeldm_tpu_torch.pipelines import pipeline
     from rangeldm_tpu_torch.convert import save_diffusers_pipeline
     from rangeldm_tpu_torch.models.unet import Attention
 
@@ -1916,7 +1916,7 @@ def phase_t64(models, smi):
         save_diffusers_pipeline(path, models.UNet2D(spec.unet),
                                 models.AutoencoderKL(spec.vae),
                                 dataclasses.asdict(spec.schedule))
-        pipe = sample_ldm.load_diffusers_pipeline(path)
+        pipe = pipeline.load_diffusers_pipeline(path)
     unet = pipe["unet"]
     tokens = {}
     hooks = [m.register_forward_pre_hook(
@@ -1928,7 +1928,7 @@ def phase_t64(models, smi):
     x = torch.randn((BATCH, spec.unet.in_channels, w, h), generator=gen,
                     device=DEVICE, dtype=torch.bfloat16)
     t = torch.tensor(500, device=DEVICE)
-    sample = sample_ldm.build_sampler(pipe, BATCH, 50)
+    sample = pipeline.build_sampler(pipe, BATCH, 50)
     out = {}
     for name in ("kernel", "reference"):
         with torch.inference_mode():
@@ -1938,7 +1938,7 @@ def phase_t64(models, smi):
                 hook.remove()
             t64 = [m for m, n in tokens.items() if n == 64]
             require(len(t64) == 6, f"{len(t64)} attention layers at T=64")
-        images = sample(sample_ldm.batch_generator(pipe["device"], SEED, 0))
+        images = sample(pipeline.batch_generator(pipe["device"], SEED, 0))
         out[name] = (eps, images.float())
         for m in t64:
             m.use_fused = False
@@ -1998,7 +1998,7 @@ def phase_spatial(kernels, models, smi) -> int:
     trace_op_breakdown: the forward kernel's group above 0 ms and its
     events equal to its launch count; device_memory_stats naming the card.
     Returns the forward kernel's launches in (d)."""
-    from rangeldm_tpu_torch import sample_ldm
+    from rangeldm_tpu_torch.pipelines import pipeline
     from rangeldm_tpu_torch.convert import save_diffusers_pipeline
     from rangeldm_tpu_torch.models import experimental, sliced
     from rangeldm_tpu_torch.parallel.sharded_vae import (
@@ -2135,15 +2135,15 @@ def phase_spatial(kernels, models, smi) -> int:
         path = os.path.join(tmp, "pipeline")
         save_diffusers_pipeline(path, models.UNet2D(spec.unet), vae,
                                 dataclasses.asdict(spec.schedule))
-        pipe = sample_ldm.load_diffusers_pipeline(path)
-        sample = sample_ldm.build_sampler(pipe, BATCH, 1)
-        sample(sample_ldm.batch_generator(dev, SEED, 0))      # warm-up
+        pipe = pipeline.load_diffusers_pipeline(path)
+        sample = pipeline.build_sampler(pipe, BATCH, 1)
+        sample(pipeline.batch_generator(dev, SEED, 0))      # warm-up
         torch.cuda.synchronize()
         trace_dir = os.path.join(tmp, "trace")
         kernels.reset_launches()
         with maybe_trace(trace_dir, enabled=True):
             with step_annotation("ddim_step"):
-                images = sample(sample_ldm.batch_generator(dev, SEED, 0))
+                images = sample(pipeline.batch_generator(dev, SEED, 0))
             torch.cuda.synchronize()
         launches = kernels.LAUNCHES["attention_fwd"]
         breakdown = trace_op_breakdown(trace_dir)

@@ -18,6 +18,8 @@
   scheduler}/, ldm/train_unconditional.py:654-682): `load_diffusers_unet`,
   `load_diffusers_vae` (diffusers VAE keys -> sgm keys) and
   `save_diffusers_pipeline`, which writes such a directory.
+* `load_vae`: any VAE artifact the first stage hands to the second, an sgm
+  file or a diffusers-layout directory.
 
 Layouts: a JAX conv kernel is HWIO (k_beam, k_azimuth, I, O) and the torch
 weight (O, I, k_azimuth, k_beam), the same permutation both ways; a JAX
@@ -502,6 +504,30 @@ def load_diffusers_vae(vae_dir: str) -> Tuple[VaeConfig, StateDict]:
         scaling_factor=vcfg.get("scaling_factor", 0.18215),
         use_quant_conv="quant_conv.weight" in sd)
     return cfg, sd
+
+
+def load_vae(path: str, cfg: Optional[VaeConfig] = None) -> AutoencoderKL:
+    """Every VAE artifact the first stage hands to the second
+    (rangeldm_tpu/train_ldm.py:50-73): an sgm `.ckpt` or an sgm-grammar
+    `.safetensors` (the VAE trainer's vae_sgm.safetensors), with the
+    shapes read off the file and the other fields of `cfg`; or a
+    diffusers-layout VAE directory, or a pipeline directory holding one
+    under vae/. An orbax pipeline directory of the JAX package is read
+    after tools/export_pipeline.py has exported it."""
+    if path.endswith((".ckpt", ".safetensors")):
+        return load_sgm_vae(path, cfg)
+    vae_dir = path if os.path.exists(os.path.join(path, "config.json")) \
+        else os.path.join(path, "vae")
+    if not os.path.isdir(vae_dir):
+        raise ValueError(f"vae_checkpoint {path!r}: expected an sgm .ckpt "
+                         f"or .safetensors file, or a diffusers-layout VAE "
+                         f"or pipeline directory (orbax directories of the "
+                         f"JAX package are not read; export a JAX pipeline "
+                         f"directory with tools/export_pipeline.py)")
+    cfg, sd = load_diffusers_vae(vae_dir)
+    vae = AutoencoderKL(cfg)
+    vae.load_state_dict(sd, strict=True)
+    return vae
 
 
 def save_diffusers_pipeline(path: str, unet: torch.nn.Module,

@@ -7,7 +7,7 @@ nearer than 70 m.
     python -m rangeldm_tpu_torch.eval_vae --vae runs/vae_kitti360/vae_sgm.safetensors \
         --data $KITTI360_DATASET --count 1000 [--device cpu]
 
-`--vae` is anything `train_ldm.load_vae` reads: an sgm `.ckpt`, the VAE
+`--vae` is anything `convert.load_vae` reads: an sgm `.ckpt`, the VAE
 trainer's `vae_sgm.safetensors` / `vae_sgm_ema.safetensors`, or a
 diffusers-layout VAE or pipeline directory.
 """
@@ -21,15 +21,15 @@ from typing import Iterable, Optional
 
 import torch
 
+from rangeldm_tpu_torch.convert import load_vae
 from rangeldm_tpu_torch.data.datasets import (
     DatasetConfig, RangeImageDataset, RangeLoader,
 )
 from rangeldm_tpu_torch.geometry import to_point_cloud
 from rangeldm_tpu_torch.metrics.chamfer import chamfer_distance
 from rangeldm_tpu_torch.models.vae import AutoencoderKL
+from rangeldm_tpu_torch.parallel.mesh import resolve_device
 from rangeldm_tpu_torch.pipelines.samplers import to_bcwh, to_bhwc
-from rangeldm_tpu_torch.sample_ldm import resolve_device
-from rangeldm_tpu_torch.train_ldm import load_vae
 
 MAX_RANGE = 70.0      # metres: the chamfer distance's points
 

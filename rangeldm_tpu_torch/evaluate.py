@@ -31,6 +31,7 @@ from rangeldm_tpu_torch.metrics.histogram import (
 )
 from rangeldm_tpu_torch.metrics.jsd import compute_jsd
 from rangeldm_tpu_torch.metrics.mmd import compute_mmd
+from rangeldm_tpu_torch.parallel.mesh import resolve_device
 
 
 def load_bin(path: str, n_feats: int = 4) -> np.ndarray:
@@ -66,8 +67,6 @@ def histograms(files, hist_fn, n_feats: int = 4):
 
 
 def main(argv=None):
-    from rangeldm_tpu_torch.sample_ldm import resolve_device
-
     ap = argparse.ArgumentParser()
     ap.add_argument("--exp", required=True, help="generated sample dir")
     ap.add_argument("--mmd", action="store_true")

@@ -2,8 +2,8 @@
 (ldm/lidar_utils.py) that feeds RangeNet++ on the metrics path, and the
 reference's `save_generated` (a log-range image to a LiDARGen-geometry
 .bin). Numpy on the host, as the reference computes it. The sampling CLIs
-write their .bin files with `sample_ldm.save_outputs`, through the training
-sensor's own geometry.
+write their .bin files with `pipelines.pipeline.save_outputs`, through the
+training sensor's own geometry.
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ import torch
 from rangeldm_tpu_torch.geometry.laserscan import laserscan_project
 from rangeldm_tpu_torch.metrics.frd import frd_from_activations, frd_indices
 from rangeldm_tpu_torch.metrics.rangenet import RangeNet, preprocess_scan
+from rangeldm_tpu_torch.parallel.mesh import resolve_device
 
 FEATURES = 32          # channels of the decoder's last feature map
 
@@ -30,7 +31,6 @@ def load_rangenet(model_dir: str, device=None) -> RangeNet:
     segmentation_decoder / optional segmentation_head torch files, read
     with weights_only=True) on `device` (default: the CUDA device)."""
     from rangeldm_tpu_torch.convert import load_torch_state_dict
-    from rangeldm_tpu_torch.sample_ldm import resolve_device
 
     def find(name):
         for cand in (name, name + ".pth", name + ".pytorch"):

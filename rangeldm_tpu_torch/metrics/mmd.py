@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rangeldm_tpu_torch.parallel.mesh import resolve_device
 from rangeldm_tpu_torch.utils.precision import tf32
 
 SIGMA = 0.5
@@ -70,7 +71,6 @@ def compute_mmd(hists_a, hists_b, device: bool = False) -> float:
     (`_mean_kernel_minus_one`)."""
     a, b = _stack(hists_a), _stack(hists_b)
     if device:
-        from rangeldm_tpu_torch.sample_ldm import resolve_device
         return _mmd_torch(a, b, resolve_device(None))
     a = a / np.sum(a, axis=1, keepdims=True)
     b = b / np.sum(b, axis=1, keepdims=True)

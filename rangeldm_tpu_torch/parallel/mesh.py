@@ -66,6 +66,19 @@ def default_cuda_device() -> torch.device:
     return torch.device("cuda", local)
 
 
+def resolve_device(device=None) -> torch.device:
+    """`None` means the CUDA device, which must exist: cuda:{LOCAL_RANK}
+    under torchrun, else the current one; "cpu" must be asked for
+    explicitly."""
+    if device is None:
+        return default_cuda_device()
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           f"available")
+    return dev
+
+
 def init_distributed(device: torch.device, backend: str = None
                      ) -> Tuple[int, int]:
     """Join the process group torchrun describes in the environment (RANK,
@@ -193,8 +206,8 @@ def local_devices(device: torch.device) -> Tuple[torch.device, ...]:
 
 def largest_divisible_prefix(n: int, batch_size: int) -> int:
     """Largest k <= n with batch_size % k == 0 — THE 'auto' inference-mesh
-    policy, shared by the sampling CLI (resolve_sampling_mesh) and
-    RangePipeline._mesh_for_batch so they cannot silently diverge."""
+    policy (`pipelines.pipeline.resolve_sampling_mesh`, which the sampling
+    CLIs and RangePipeline's mesh="auto" share)."""
     if batch_size <= 0:
         # 0 % k == 0 for every k, so a degenerate batch would silently
         # select the FULL mesh; fail at the policy layer instead
@@ -208,5 +221,5 @@ def largest_divisible_prefix(n: int, batch_size: int) -> int:
 def split_batch(x: torch.Tensor, mesh: Sequence[torch.device]
                 ) -> List[torch.Tensor]:
     """`x`'s batch chunks, one on each device of `mesh` (the batch divides
-    over it: `sample_ldm.sampling_mesh` checks)."""
+    over it: `pipelines.pipeline.sampling_mesh` checks)."""
     return [c.to(d) for c, d in zip(x.chunk(len(mesh)), mesh)]

@@ -6,7 +6,7 @@
 Runs the whole release check and prints PASS/FAIL:
 
   1. load - the weights through the diffusers-layout loader
-     (`sample_ldm.load_diffusers_pipeline`);
+     (`pipelines.pipeline.load_diffusers_pipeline`);
   2. stage report - VAE encode/decode round trip on held-out scans
      (recon MAE/PSNR, scaled-latent stats) and a UNet forward sanity check;
   3. sample - 50-step DDIM generation, back-projected to point-cloud .bin
@@ -33,7 +33,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from rangeldm_tpu_torch.sample_ldm import pipe_image_size
+from rangeldm_tpu_torch.parallel.mesh import resolve_device
+from rangeldm_tpu_torch.pipelines.pipeline import (
+    adapt_spec_to_model, apply_meta_normalization, batch_generator,
+    build_sampler, is_diffusers_pipeline, load_diffusers_pipeline,
+    pipe_image_size, pipe_pos_encoding, resolve_sampling_mesh, save_outputs,
+)
 
 # Published numbers: the reference README's rows for RangeLDM KITTI-360,
 # RangeDM KITTI-360 and RangeLDM nuScenes. FRD rows are report-only unless
@@ -49,9 +54,6 @@ def load_gate_pipeline(path: str, dtype: torch.dtype, device) -> dict:
     """A released (diffusers-layout) pipeline directory. A native orbax
     pipeline directory of the JAX package is refused by name, with the tool
     that exports it."""
-    from rangeldm_tpu_torch.sample_ldm import (
-        is_diffusers_pipeline, load_diffusers_pipeline,
-    )
     if not os.path.isdir(path):
         raise FileNotFoundError(f"--weights {path}: no such directory")
     if not is_diffusers_pipeline(path):
@@ -106,7 +108,6 @@ def unet_stage_report(pipe) -> Dict[str, float]:
     """One UNet forward at mid-schedule on unit noise: finite and
     reasonably scaled output is the converted-weights sanity signal."""
     from rangeldm_tpu_torch.pipelines.samplers import make_pos_encoding
-    from rangeldm_tpu_torch.sample_ldm import pipe_pos_encoding
 
     cfg, dev, dtype = pipe["unet_cfg"], pipe["device"], pipe["dtype"]
     h, w = cfg.sample_size
@@ -129,11 +130,8 @@ def generate_samples(pipe, out_dir: str, spec, n_samples: int,
                      batch_size: int, steps: int, seed: int,
                      mesh_devices: str = "auto") -> int:
     """DDIM samples written as {i}.bin clouds; batch b draws from
-    `sample_ldm.batch_generator(seed, b)`, each batch split over the local
-    mesh `mesh_devices` names (`sample_ldm.resolve_sampling_mesh`)."""
-    from rangeldm_tpu_torch.sample_ldm import (
-        batch_generator, build_sampler, resolve_sampling_mesh, save_outputs,
-    )
+    `batch_generator(seed, b)`, each batch split over the local mesh
+    `mesh_devices` names (`resolve_sampling_mesh`)."""
     mesh = resolve_sampling_mesh(mesh_devices, batch_size, pipe["device"])
     sample = build_sampler(pipe, batch_size, steps, "ddim", mesh=mesh)
     written = 0
@@ -203,9 +201,6 @@ def _main(argv=None):
         kitti_reference_files, load_bin, nuscenes_reference_files,
     )
     from rangeldm_tpu_torch.geometry.sensors import get_spec
-    from rangeldm_tpu_torch.sample_ldm import (
-        adapt_spec_to_model, apply_meta_normalization, resolve_device,
-    )
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--weights", required=True,

@@ -26,12 +26,8 @@ import torch
 
 from rangeldm_tpu_torch.geometry.inverse import to_point_cloud_masked
 from rangeldm_tpu_torch.geometry.sensors import SensorSpec, get_spec
-from rangeldm_tpu_torch.parallel.mesh import (
-    largest_divisible_prefix, local_devices,
-)
+from rangeldm_tpu_torch.pipelines import pipeline
 from rangeldm_tpu_torch.utils.profiling import step_annotation
-# module references, not names: both import this package in turn
-from rangeldm_tpu_torch import sample_conditional, sample_ldm
 
 
 class RangePipeline:
@@ -65,9 +61,9 @@ class RangePipeline:
         `device` (batches must divide over it), or "auto", this process's
         devices (`parallel.mesh.local_devices`), of which each call takes
         the largest prefix that divides its batch."""
-        pipe = sample_ldm.load_diffusers_pipeline(path, dtype=dtype,
-                                                  device=device,
-                                                  use_ema=use_ema)
+        pipe = pipeline.load_diffusers_pipeline(path, dtype=dtype,
+                                                device=device,
+                                                use_ema=use_ema)
         return cls(pipe, sensor=sensor, spec=spec, mesh=mesh)
 
     def _mesh_for_batch(self, batch_size: int) -> Optional[tuple]:
@@ -77,8 +73,7 @@ class RangePipeline:
         None for the pipeline's device alone."""
         if self.mesh != "auto":
             return self.mesh
-        local = local_devices(self.device)
-        return local[:largest_divisible_prefix(len(local), batch_size)]
+        return pipeline.resolve_sampling_mesh("auto", batch_size, self.device)
 
     @property
     def device(self) -> torch.device:
@@ -100,7 +95,7 @@ class RangePipeline:
     @property
     def cond_channels(self) -> int:
         cfg = self._p["unet_cfg"]
-        pos = 1 if sample_ldm.pipe_pos_encoding(self._p) else 0
+        pos = 1 if pipeline.pipe_pos_encoding(self._p) else 0
         return cfg.in_channels - cfg.out_channels - pos
 
     @property
@@ -117,9 +112,9 @@ class RangePipeline:
     @property
     def spec(self) -> SensorSpec:
         if self._spec is None:
-            spec = sample_ldm.adapt_spec_to_model(
-                get_spec(self.sensor), sample_ldm.pipe_image_size(self._p))
-            self._spec = sample_ldm.apply_meta_normalization(
+            spec = pipeline.adapt_spec_to_model(
+                get_spec(self.sensor), pipeline.pipe_image_size(self._p))
+            self._spec = pipeline.apply_meta_normalization(
                 spec, self._p.get("meta"))
         return self._spec
 
@@ -139,7 +134,7 @@ class RangePipeline:
             if generator is None:
                 generator = torch.Generator(
                     device=self.device).manual_seed(seed)
-            sample = sample_ldm.build_sampler(
+            sample = pipeline.build_sampler(
                 self._p, batch_size, num_inference_steps, method,
                 final_only=final_only,
                 mesh=self._mesh_for_batch(batch_size))
@@ -158,7 +153,7 @@ class RangePipeline:
                 generator = torch.Generator(
                     device=self.device).manual_seed(seed)
             batch = len(next(iter(cond_inputs.values())))
-            sample = sample_conditional.build_conditional_sampler(
+            sample = pipeline.build_conditional_sampler(
                 self._p, batch, mode, num_steps, factor, method=method,
                 mesh=self._mesh_for_batch(batch))
             out = sample(generator, cond_inputs)
@@ -218,4 +213,4 @@ class RangePipeline:
         evaluation CLI reads."""
         imgs = torch.as_tensor(np.asarray(images, np.float32),
                                device=self.device)
-        sample_ldm.save_outputs(imgs, self.spec, out_dir, start_idx)
+        pipeline.save_outputs(imgs, self.spec, out_dir, start_idx)

@@ -7,7 +7,7 @@ the host longer than the kernels take the card. `GraphedUNet(unet)` is a
 `model_fn(x, t)` over one replica's UNet that captures one evaluation per
 input shape into a CUDA graph and replays it at every later step: the same
 kernels, the hand-written attention kernel among them, issued by one
-launch. The pipeline keeps one per replica (`sample_ldm.unet_fns`), so its
+launch. The pipeline keeps one per replica (`pipeline.replicas`), so its
 graphs outlive the sampler of a call.
 
 It graphs where it can, judging from what it is given: `x` a contiguous

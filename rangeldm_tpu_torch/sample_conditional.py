@@ -22,85 +22,19 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-from typing import Optional
 
 import numpy as np
-import torch
 
 from rangeldm_tpu_torch.data.datasets import (
     DatasetConfig, RangeImageDataset, RangeLoader,
 )
-from rangeldm_tpu_torch.models.layers import pixel_unshuffle_azimuth
-from rangeldm_tpu_torch.parallel.mesh import process_shard, split_batch
-from rangeldm_tpu_torch.pipelines.samplers import (
-    conditional_latent_sample, to_bcwh,
+from rangeldm_tpu_torch.parallel.mesh import process_shard, resolve_device
+from rangeldm_tpu_torch.pipelines.pipeline import (
+    MODES, batch_generator, build_conditional_sampler,
+    load_diffusers_pipeline, pipe_image_size, resolve_sampling_mesh,
 )
-# a module reference, not names: sample_ldm imports the pipelines package,
-# whose API imports this module in turn
-from rangeldm_tpu_torch import sample_ldm
-from rangeldm_tpu_torch.training.conditions import encode_masked_image_cond
 
-MODES = ("upsample", "inpainting")
 COND_KEYS = ("down", "masked_image", "inpainting_mask")
-
-
-def build_conditional_sampler(pipe, batch_size: int, mode: str,
-                              num_steps: int = 50, factor: int = 4,
-                              method: str = "ddim", mesh=None):
-    """A function `sample(generator, cond_inputs) -> (B, H, W, C)` images on
-    the pipeline's device, in its dtype. `cond_inputs` holds 'down'
-    (upsample) or 'masked_image' and 'inpainting_mask' (inpainting), each
-    (B, H', W, C') in the loader's layout, as arrays or tensors. The
-    generator draws the masked image's posterior noise, then x_T.
-    method: 'ddim' or 'dpmpp' (DPM-Solver++ 2M). `mesh` splits the batch
-    (the condition's encode, the denoise loop and the decode) over its
-    devices, with the same result (sample_ldm.build_sampler)."""
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
-    if pipe["vae"] is None:
-        raise ValueError("conditional sampling needs a latent pipeline")
-    mesh = sample_ldm.sampling_mesh(pipe, batch_size, mesh)
-    unets = sample_ldm.unet_fns(pipe, mesh)
-    _, vaes = sample_ldm.replicas(pipe, mesh)
-    cfg, vcfg = pipe["unet_cfg"], pipe["vae_cfg"]
-    sf, dtype, device = vcfg.scaling_factor, pipe["dtype"], pipe["device"]
-    h, w = cfg.sample_size
-    shape = (batch_size, h, w, cfg.out_channels)
-    # a conditional model trained with the pos channel needs it here too
-    # (the shipped conditional configs have none)
-    pos = sample_ldm.pipe_pos_encoding(pipe)
-
-    def chunks(v) -> list:
-        v = torch.as_tensor(v)
-        if v.shape[0] != batch_size:
-            raise ValueError(f"condition batch {v.shape[0]} != sampler "
-                             f"batch {batch_size}")
-        return split_batch(to_bcwh(v.to(device=device, dtype=dtype)), mesh)
-
-    @torch.inference_mode()
-    def sample(generator: Optional[torch.Generator], cond_inputs: dict):
-        if mode == "upsample":
-            cond = [pixel_unshuffle_azimuth(d, factor)
-                    for d in chunks(cond_inputs["down"])]
-        else:
-            # each chunk encoded on its device; the posterior noise drawn
-            # for the batch, as one encode of the batch would draw it
-            images = chunks(cond_inputs["masked_image"])
-            _, _, iw, ih = images[0].shape
-            f = vcfg.down_factor
-            noise = torch.randn((batch_size, vcfg.z_channels, iw // f,
-                                 ih // f), generator=generator, device=device)
-            cond = [encode_masked_image_cond(vae, sf, im, mk,
-                                             posterior_noise=nz)
-                    for vae, im, mk, nz in zip(
-                        vaes, images, chunks(cond_inputs["inpainting_mask"]),
-                        split_batch(noise, mesh))]
-        return conditional_latent_sample(
-            unets, [v.decode for v in vaes], pipe["schedule"], shape, sf,
-            cond, generator, num_steps=num_steps, pos_encoding=pos,
-            method=method, dtype=dtype, mesh=mesh)
-
-    return sample
 
 
 def conditional_dataset_config(pipe, data_root: str, sensor: str, mode: str,
@@ -110,7 +44,7 @@ def conditional_dataset_config(pipe, data_root: str, sensor: str, mode: str,
     meta['normalization'] record where it has one, else the sensor's
     defaults."""
     norm = (pipe.get("meta") or {}).get("normalization") or {}
-    _, model_w = sample_ldm.pipe_image_size(pipe)
+    _, model_w = pipe_image_size(pipe)
     used = pipe["vae_cfg"].in_channels if pipe["vae_cfg"] else 2
     return DatasetConfig(
         root=data_root, sensor=sensor, width=model_w, used_feature=used,
@@ -144,10 +78,9 @@ def main(argv=None) -> int:
                          "for none")
     args = ap.parse_args(argv)
 
-    device = sample_ldm.resolve_device(args.device)
-    pipe = sample_ldm.load_diffusers_pipeline(args.pipeline, device=device)
-    mesh = sample_ldm.resolve_sampling_mesh(args.mesh_devices,
-                                            args.batch_size, device)
+    device = resolve_device(args.device)
+    pipe = load_diffusers_pipeline(args.pipeline, device=device)
+    mesh = resolve_sampling_mesh(args.mesh_devices, args.batch_size, device)
     sample = build_conditional_sampler(pipe, args.batch_size, args.mode,
                                        args.steps, args.factor,
                                        method=args.method, mesh=mesh)
@@ -173,7 +106,7 @@ def main(argv=None) -> int:
         covered = min((bi + 1) * args.batch_size, args.samples)
         if bi % world != rank:
             continue
-        result = sample(sample_ldm.batch_generator(device, 0, bi),
+        result = sample(batch_generator(device, 0, bi),
                         {k: v for k, v in batch.items() if k in COND_KEYS})
         result = result.float().cpu().numpy()
         inputs = batch["down" if args.mode == "upsample" else "masked_image"]

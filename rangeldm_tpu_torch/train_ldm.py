@@ -68,15 +68,11 @@ import dataclasses
 import logging
 import os
 import re
-import time
-from contextlib import closing
 from typing import Mapping, Optional
 
 import torch
 
-from rangeldm_tpu_torch.convert import (
-    load_diffusers_vae, load_sgm_vae, save_diffusers_pipeline,
-)
+from rangeldm_tpu_torch.convert import load_vae, save_diffusers_pipeline
 from rangeldm_tpu_torch.data.datasets import (
     DatasetConfig, RangeImageDataset, RangeLoader,
 )
@@ -87,11 +83,11 @@ from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
 from rangeldm_tpu_torch.models.zoo import ModelSpec, get_model_spec
 from rangeldm_tpu_torch.parallel.mesh import (
     barrier, broadcast_, init_distributed, is_primary, process_shard,
+    resolve_device,
 )
 from rangeldm_tpu_torch.pipelines.samplers import (
     conditional_latent_sample, ddim_sample, latent_sample, to_bcwh, to_bhwc,
 )
-from rangeldm_tpu_torch.sample_ldm import resolve_device
 from rangeldm_tpu_torch.training import conditions
 from rangeldm_tpu_torch.training.checkpoint import TrainCheckpointer
 from rangeldm_tpu_torch.training.image_logger import save_range_image_grid
@@ -101,9 +97,7 @@ from rangeldm_tpu_torch.training.latent_cache import (
 from rangeldm_tpu_torch.training.ldm_trainer import (
     LdmTrainConfig, make_ldm_train_step,
 )
-from rangeldm_tpu_torch.training.loggers import (
-    ScalarLogger, emergency_checkpoint,
-)
+from rangeldm_tpu_torch.training.loop import fit_epochs, fit_loop
 from rangeldm_tpu_torch.training.train_state import TrainState, make_adamw
 from rangeldm_tpu_torch.utils.config import Cfg, expand_env, load_config
 from rangeldm_tpu_torch.utils.profiling import step_annotation
@@ -137,33 +131,8 @@ def spec_from_cfg(cfg: Cfg) -> ModelSpec:
         pos_encoding=pos, cond_channels=cond)
 
 
-def load_vae(path: str, cfg: Optional[VaeConfig] = None) -> AutoencoderKL:
-    """Every VAE artifact the first stage hands to the second
-    (rangeldm_tpu/train_ldm.py:50-73): an sgm `.ckpt` or an sgm-grammar
-    `.safetensors` (the VAE trainer's vae_sgm.safetensors), with the
-    shapes read off the file and the other fields of `cfg`; or a
-    diffusers-layout VAE directory, or a pipeline directory holding one
-    under vae/. An orbax pipeline directory of the JAX package is read
-    after tools/export_pipeline.py has exported it."""
-    if path.endswith((".ckpt", ".safetensors")):
-        return load_sgm_vae(path, cfg)
-    vae_dir = path if os.path.exists(os.path.join(path, "config.json")) \
-        else os.path.join(path, "vae")
-    if not os.path.isdir(vae_dir):
-        raise ValueError(f"vae_checkpoint {path!r}: expected an sgm .ckpt "
-                         f"or .safetensors file, or a diffusers-layout VAE "
-                         f"or pipeline directory (orbax directories of the "
-                         f"JAX package are not read; export a JAX pipeline "
-                         f"directory with tools/export_pipeline.py)")
-    cfg, sd = load_diffusers_vae(vae_dir)
-    vae = AutoencoderKL(cfg)
-    vae.load_state_dict(sd, strict=True)
-    return vae
-
-
 # the batch entries a step reads: images or moments, and the conditions
 BATCH_KEYS = ("jpg", "moments", "down", "masked_image", "inpainting_mask")
-_END = object()     # what `fit` pulls from exhausted batches
 
 
 class LdmTrainer:
@@ -455,78 +424,28 @@ class LdmTrainer:
 
     def fit(self, batches, max_steps: Optional[int] = None,
             log_every: int = 50, loader=None) -> dict:
-        """Train on `batches` until they run out or the step count reaches
-        `max_steps`. Every `log_every` steps (and at the last) the loss,
-        the gradient norm, the step and the steps per second since the
-        start of this call go to <output_dir>/train_log.jsonl and
-        <output_dir>/tb, with the `data_wait_frac` of `loader` (the
-        RangeLoader feeding `batches`) when one is given. A checkpoint every `checkpointing_steps`, a
-        sample dump every `sample_every_steps` (a conditional model samples
-        from the current batch's conditions), and a checkpoint at the next
-        step boundary after SIGUSR1 or when an exception escapes (then
-        rank 0 writes it alone). Each step is a `train_step` span
-        (utils/profiling.py), from the batch pull to the end of its log,
-        checkpoint and dump. Returns the last logged record."""
-        cfg = self.cfg
-        ckpt_steps = int(cfg.get("checkpointing_steps", 500))
-        sample_steps = cfg.get("sample_every_steps")
-        logger = ScalarLogger(self.out_dir,
-                              csv=bool(cfg.get("csv_log", False)),
-                              tensorboard=bool(cfg.get("tensorboard", True)),
-                              wandb=bool(cfg.get("wandb", False)))
-        last = {}
-        t0 = time.perf_counter()
-        step0 = step = self.state.step
+        """Train on `batches` (training/loop.py `fit_loop`), logging the
+        loss and the gradient norm, with a checkpoint every
+        `checkpointing_steps` and a sample dump every `sample_every_steps`
+        (a conditional model samples from the current batch's
+        conditions). Returns the last logged record."""
+        sample_steps = self.cfg.get("sample_every_steps")
+
+        def dump(step: int, batch: dict) -> bool:
+            if not (sample_steps and step % int(sample_steps) == 0):
+                return False
+            with step_annotation("sample_dump"):
+                self.dump_samples(step, cond_batch=(
+                    batch if self.spec.cond_channels else None))
+            return True
+
         self.unet.train()
-
-        def save_now():
-            self.ckpt.save(self.state.step, self.state)
-
-        def write_now():
-            self.ckpt.write(self.state.step, self.state)
-
-        # the event file is closed on the crash path too
-        with closing(logger), emergency_checkpoint(
-                save_now, on_error=write_now) as melk:
-            batches = iter(batches)
-            while True:
-                with step_annotation("train_step") as root:
-                    with step_annotation("batch_wait") as wait:
-                        batch = next(batches, _END)
-                        if batch is _END:
-                            wait.discard()
-                            root.discard()
-                    if batch is _END:
-                        break
-                    with step_annotation("to_device"):
-                        batch = self._to_device(batch)
-                    metrics = self.train_step(self.state, batch,
-                                              self.state.generator)
-                    melk()
-                    step += 1
-                    done = bool(max_steps) and step >= max_steps
-                    if step % log_every == 0 or done:
-                        with step_annotation("log_sync"):
-                            # float() waits for the device: only at log
-                            # steps
-                            last = {k: float(v) for k, v in metrics.items()}
-                            last.update(step=step, sps=(
-                                (step - step0)
-                                / max(time.perf_counter() - t0, 1e-9)))
-                            if loader is not None:
-                                last["data_wait_frac"] = loader.wait_fraction
-                            logger.log(step, last)
-                    if step % ckpt_steps == 0:
-                        with step_annotation("checkpoint"):
-                            self.ckpt.save(step, self.state)
-                    if sample_steps and step % int(sample_steps) == 0:
-                        with step_annotation("sample_dump"):
-                            self.dump_samples(step, cond_batch=(
-                                batch if self.spec.cond_channels else None))
-                        melk()   # serve a signal that came during the dump
-                if done:
-                    break
-        return last
+        return fit_loop(
+            self, batches,
+            lambda batch: self.train_step(self.state, batch,
+                                          self.state.generator),
+            dump, max_steps=max_steps, log_every=log_every, loader=loader,
+            ckpt_every=int(self.cfg.get("checkpointing_steps", 500)))
 
     def save_final(self) -> str:
         """Write <output_dir>/pipeline in the diffusers layout (unet/,
@@ -611,24 +530,8 @@ def main(argv=None) -> LdmTrainer:
                   "(conditional runs need per-step images for conditions)")
         loader = RangeLoader(ds, batch_size=bs, shard_by_process=world > 1)
 
-    if len(loader) == 0:
-        raise ValueError(f"no training batch: {len(loader.dataset)} samples "
-                         f"under data.root, batch size {bs}")
-    start = trainer.resume()
-    if start:
-        print(f"[resume] restored step {start}")
-    total = int(cfg.get("num_epochs", 1000)) * len(loader)
-
-    def epochs():
-        while True:
-            yield from loader
-
-    batches = epochs()
-    try:
-        trainer.fit(batches, max_steps=args.max_steps or total,
-                    log_every=int(cfg.get("log_every", 50)), loader=loader)
-    finally:
-        batches.close()     # stops the loader's producer thread
+    fit_epochs(trainer, loader, max_steps=args.max_steps,
+               num_epochs=int(cfg.get("num_epochs", 1000)))
     trainer.save_final()
     return trainer
 

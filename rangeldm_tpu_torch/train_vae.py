@@ -47,7 +47,7 @@ benchmarking, CUBLAS_WORKSPACE_CONFIG=:4096:8 set before CUDA starts),
 which this module does not set: with cuDNN's default algorithms two runs
 differ in the last bits. The final weights are the sgm-grammar
 `vae_sgm.safetensors` and `vae_sgm_ema.safetensors` under output_dir,
-which `train_ldm.load_vae` and `eval_vae` read; no orbax tree is written.
+which `convert.load_vae` and `eval_vae` read; no orbax tree is written.
 
 Data-parallel training runs one process per GPU under torchrun
 (`python -m torch.distributed.run --nproc_per_node N -m
@@ -68,8 +68,6 @@ import argparse
 import copy
 import json
 import os
-import time
-from contextlib import closing
 from typing import Mapping, Optional
 
 import numpy as np
@@ -88,14 +86,12 @@ from rangeldm_tpu_torch.models.lpips import make_perceptual_fn
 from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
 from rangeldm_tpu_torch.parallel.mesh import (
     barrier, broadcast_, init_distributed, is_primary, process_shard,
+    resolve_device,
 )
 from rangeldm_tpu_torch.pipelines.samplers import to_bcwh, to_bhwc
-from rangeldm_tpu_torch.sample_ldm import resolve_device
 from rangeldm_tpu_torch.training.checkpoint import TrainCheckpointer
 from rangeldm_tpu_torch.training.image_logger import ImageLogger
-from rangeldm_tpu_torch.training.loggers import (
-    ScalarLogger, emergency_checkpoint,
-)
+from rangeldm_tpu_torch.training.loop import fit_epochs, fit_loop
 from rangeldm_tpu_torch.training.vae_trainer import (
     VaeGanState, VaeLossConfig, make_vae_gan_steps, reconstruction_loss,
 )
@@ -104,7 +100,6 @@ from rangeldm_tpu_torch.utils.precision import tf32
 from rangeldm_tpu_torch.utils.profiling import step_annotation
 
 GEN, DISC = 0, 1      # the noise streams of the two steps
-_END = object()       # what `fit` pulls from exhausted batches
 # TF32 for (cuDNN, matrix products) in the steps: PyTorch's defaults, which
 # the published runs keep (vae/main.py's --enable_tf32 left off)
 STEP_TF32 = (True, False)
@@ -275,18 +270,11 @@ class VaeTrainer:
 
     def fit(self, batches, max_steps: Optional[int] = None,
             log_every: int = 50, loader=None) -> dict:
-        """Train until `batches` run out or the step count reaches
-        `max_steps`. Every `log_every` steps (and at the last) both steps'
-        metrics, the step and the steps per second since the start of this
-        call go to output_dir/train_log.jsonl and output_dir/tb (with the
-        loader's `data_wait_frac` when `loader` is given); a checkpoint every
-        `checkpoint_every_steps`, reconstruction grids every
-        `log_images_every`, and a checkpoint at the next step boundary
-        after SIGUSR1 or when an exception escapes. Each step is a
-        `train_step` span, from the batch pull to the end of its log and
-        checkpoint. Returns the last logged record."""
+        """Train on `batches` (training/loop.py `fit_loop`), logging both
+        steps' metrics, with a checkpoint every `checkpoint_every_steps`
+        and reconstruction grids every `log_images_every`. Returns the last
+        logged record."""
         cfg = self.cfg
-        ckpt_every = int(cfg.get("checkpoint_every_steps", 1020))
         image_logger = None
         if cfg.get("log_images_every"):
             # each rank logs its own batch
@@ -297,65 +285,22 @@ class VaeTrainer:
                 mean=float(self.sensor_spec.mean),
                 std=float(self.sensor_spec.std),
                 suffix=f"_p{rank}" if world > 1 else "")
-        logger = ScalarLogger(self.out_dir,
-                              tensorboard=bool(cfg.get("tensorboard", True)),
-                              csv=bool(cfg.get("csv_log", False)),
-                              wandb=bool(cfg.get("wandb", False)))
-        last = {}
-        t0 = time.perf_counter()
-        step0 = step = self.state.step
 
-        def save_now():
-            self.ckpt.save(self.state.step, self.state)
+        def log_images(step: int, x: torch.Tensor) -> bool:
+            if image_logger is None or not image_logger.should_log(step):
+                return False
+            xrec = self.reconstruct(
+                self.state.vae, x,
+                torch.Generator(self.device).manual_seed(step))
+            image_logger.log(step, inputs=to_bhwc(x).cpu().numpy(),
+                             reconstructions=to_bhwc(xrec).cpu().numpy())
+            return True
 
-        def write_now():
-            self.ckpt.write(self.state.step, self.state)
-
-        # the event file is closed on the crash path too
-        with closing(logger), emergency_checkpoint(
-                save_now, on_error=write_now) as melk:
-            batches = iter(batches)
-            while True:
-                with step_annotation("train_step") as root:
-                    with step_annotation("batch_wait") as wait:
-                        batch = next(batches, _END)
-                        if batch is _END:
-                            wait.discard()
-                            root.discard()
-                    if batch is _END:
-                        break
-                    with step_annotation("to_device"):
-                        x = self._to_device(batch)
-                    metrics = self.train_step(x)
-                    melk()
-                    step += 1
-                    if image_logger is not None and \
-                            image_logger.should_log(step):
-                        xrec = self.reconstruct(
-                            self.state.vae, x,
-                            torch.Generator(self.device).manual_seed(step))
-                        image_logger.log(
-                            step, inputs=to_bhwc(x).cpu().numpy(),
-                            reconstructions=to_bhwc(xrec).cpu().numpy())
-                        melk()
-                    done = bool(max_steps) and step >= max_steps
-                    if step % log_every == 0 or done:
-                        with step_annotation("log_sync"):
-                            # float() waits for the device: only at log
-                            # steps
-                            last = {k: float(v) for k, v in metrics.items()}
-                            last.update(step=step, sps=(
-                                (step - step0)
-                                / max(time.perf_counter() - t0, 1e-9)))
-                            if loader is not None:
-                                last["data_wait_frac"] = loader.wait_fraction
-                            logger.log(step, last)
-                    if step % ckpt_every == 0:
-                        with step_annotation("checkpoint"):
-                            self.ckpt.save(step, self.state)
-                if done:
-                    break
-        return last
+        return fit_loop(
+            # looked up at every step: a caller may replace the step
+            self, batches, lambda x: self.train_step(x), log_images,
+            max_steps=max_steps, log_every=log_every, loader=loader,
+            ckpt_every=int(cfg.get("checkpoint_every_steps", 1020)))
 
     def ema_vae(self) -> AutoencoderKL:
         """A copy of the VAE holding the EMA weights, refreshed at every
@@ -442,26 +387,11 @@ def main(argv=None) -> VaeTrainer:
     bs = int(cfg.get("batch_size", 16))
     loader = RangeLoader(RangeImageDataset(ds_config, train=True),
                          batch_size=bs, shard_by_process=world > 1)
-    if len(loader) == 0:
-        raise ValueError(f"no training batch: {len(loader.dataset)} samples "
-                         f"under data.root, batch size {bs}")
     trainer = VaeTrainer(cfg, device=device)
-    start = trainer.resume()
-    if start:
-        print(f"[resume] restored step {start}")
-    loader.seek(start)
-    total = int(cfg.get("max_epochs", 1000)) * len(loader)
-
-    def epochs():
-        while True:
-            yield from loader
-
-    batches = epochs()
-    try:
-        trainer.fit(batches, max_steps=args.max_steps or total,
-                    log_every=int(cfg.get("log_every", 50)), loader=loader)
-    finally:
-        batches.close()     # stops the loader's producer thread
+    # a resumed run reads on from the restored step's place in its epoch
+    fit_epochs(trainer, loader, max_steps=args.max_steps,
+               num_epochs=int(cfg.get("max_epochs", 1000)),
+               on_resume=loader.seek)
 
     # the held-out split (drives 0000/0002), as vae/main.py:905-906's
     # trainer.test: live and EMA reconstruction losses, on rank 0

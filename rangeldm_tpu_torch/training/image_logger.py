@@ -4,7 +4,7 @@ ImageLogger, vae/main.py:309-477, and the per-epoch sample dumps of
 ldm/train_unconditional.py:597-652).
 
 The PNGs are written with the package's own greyscale writer
-(`sample_ldm.write_png_gray`), so no imaging package is needed.
+(`utils/png.py`), so no imaging package is needed.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import os
 
 import numpy as np
 
-from rangeldm_tpu_torch.sample_ldm import write_png_gray
+from rangeldm_tpu_torch.utils.png import write_png_gray
 
 
 def _to_u8(x: np.ndarray) -> np.ndarray:

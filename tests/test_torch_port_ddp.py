@@ -36,8 +36,8 @@ from rangeldm_tpu_torch.diffusion.schedule import Schedule, ScheduleConfig
 from rangeldm_tpu_torch.models.unet import UNet2D, UNetConfig
 from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
 from rangeldm_tpu_torch.parallel import mesh
-from rangeldm_tpu_torch.pipelines import RangePipeline
-from rangeldm_tpu_torch.sample_conditional import build_conditional_sampler
+from rangeldm_tpu_torch.pipelines import RangePipeline, pipeline
+from rangeldm_tpu_torch.pipelines.pipeline import build_conditional_sampler
 from rangeldm_tpu_torch.training.checkpoint import TrainCheckpointer
 from rangeldm_tpu_torch.training.loggers import ScalarLogger
 
@@ -346,7 +346,7 @@ def eight_cards(monkeypatch):
 
 def test_resolve_sampling_mesh_policy(eight_cards, monkeypatch):
     def size(*args):
-        m = sample_ldm.resolve_sampling_mesh(*args, eight_cards)
+        m = pipeline.resolve_sampling_mesh(*args, eight_cards)
         return len(m)
 
     assert size("auto", 16) == 8
@@ -356,32 +356,32 @@ def test_resolve_sampling_mesh_policy(eight_cards, monkeypatch):
     assert size("auto", 7) == 7
     with pytest.raises(ValueError, match="local devices"):
         size("64", 64)
-    assert sample_ldm.resolve_sampling_mesh("auto", 16, torch.device(
+    assert pipeline.resolve_sampling_mesh("auto", 16, torch.device(
         "cuda", 3))[:2] == (torch.device("cuda", 3), torch.device("cuda", 0))
     # RangePipeline(mesh="auto") takes the same prefix for each call
     auto = RangePipeline(dict(_tiny_pipe(), device=eight_cards), mesh="auto")
     for batch in (16, 6, 3):
-        assert auto._mesh_for_batch(batch) == sample_ldm.resolve_sampling_mesh(
+        assert auto._mesh_for_batch(batch) == pipeline.resolve_sampling_mesh(
             "auto", batch, eight_cards)
     with pytest.raises(ValueError, match="'auto'"):
         RangePipeline(_tiny_pipe(), mesh="all")
     # under torchrun each rank owns its card only
     monkeypatch.setenv("WORLD_SIZE", "8")
     assert size("auto", 16) == 1
-    assert sample_ldm.resolve_sampling_mesh("auto", 4, "cpu") == (
+    assert pipeline.resolve_sampling_mesh("auto", 4, "cpu") == (
         torch.device("cpu"),)
 
 
 def test_default_device_is_the_local_rank_card(eight_cards, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    assert sample_ldm.resolve_device(None) == torch.device("cuda", 0)
+    assert mesh.resolve_device(None) == torch.device("cuda", 0)
     monkeypatch.setenv("WORLD_SIZE", "16")
     monkeypatch.setenv("LOCAL_RANK", "5")
-    assert sample_ldm.resolve_device(None) == torch.device("cuda", 5)
-    assert sample_ldm.resolve_device("cpu") == torch.device("cpu")
+    assert mesh.resolve_device(None) == torch.device("cuda", 5)
+    assert mesh.resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setenv("LOCAL_RANK", "8")
     with pytest.raises(RuntimeError, match="LOCAL_RANK 8 has no card"):
-        sample_ldm.resolve_device(None)
+        mesh.resolve_device(None)
 
 
 def test_single_process_helpers_are_no_ops(tmp_path, monkeypatch):
@@ -422,11 +422,11 @@ def _spy_batches(pipe):
 def test_build_sampler_on_a_mesh_equals_one_device(with_vae, method):
     pipe = _tiny_pipe(with_vae=with_vae)
     seen = _spy_batches(pipe)
-    ref = sample_ldm.build_sampler(pipe, 4, 3, method)(
+    ref = pipeline.build_sampler(pipe, 4, 3, method)(
         torch.Generator().manual_seed(7))
     assert set(seen) == {4}
     seen.clear()
-    got = sample_ldm.build_sampler(pipe, 4, 3, method, mesh=CPU2)(
+    got = pipeline.build_sampler(pipe, 4, 3, method, mesh=CPU2)(
         torch.Generator().manual_seed(7))
     assert seen == [2] * 6          # two chunks a step
     np.testing.assert_allclose(got.numpy(), ref.numpy(), **MESH_TOL)
@@ -476,7 +476,7 @@ def test_range_pipeline_on_a_mesh_equals_one_device():
 def test_mesh_batch_divisibility_error():
     pipe = _tiny_pipe(with_vae=False)
     with pytest.raises(ValueError, match="not divisible"):
-        sample_ldm.build_sampler(pipe, 6, 2, mesh=(torch.device("cpu"),) * 4)
+        pipeline.build_sampler(pipe, 6, 2, mesh=(torch.device("cpu"),) * 4)
     with pytest.raises(ValueError, match="starts at the pipeline's device"):
-        sample_ldm.build_sampler(pipe, 4, 2, mesh=(torch.device("meta"),
+        pipeline.build_sampler(pipe, 4, 2, mesh=(torch.device("meta"),
                                                    torch.device("cpu")))

@@ -28,11 +28,10 @@ from test_torch_port_common import (
     jax_unet_params, jax_vae_params, perturb,
 )
 
-from rangeldm_tpu_torch import sample_ldm
 from rangeldm_tpu_torch.convert import unet_state_dict_from_jax
 from rangeldm_tpu_torch.models.unet import UNetConfig
 from rangeldm_tpu_torch.models.vae import VaeConfig
-from rangeldm_tpu_torch.pipelines import RangePipeline
+from rangeldm_tpu_torch.pipelines import RangePipeline, pipeline
 from rangeldm_tpu_torch.pipelines import samplers as ts
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -103,7 +102,7 @@ def test_exported_pipeline_samples_as_the_jax_one(jax_pipeline, tmp_path):
     assert index["schedule"]["prediction_type"] == "v_prediction"
 
     jp = jax_sample_ldm.load_any_pipeline(jax_pipeline, dtype=jnp.float32)
-    pipe = sample_ldm.load_diffusers_pipeline(out, dtype=torch.float32,
+    pipe = pipeline.load_diffusers_pipeline(out, dtype=torch.float32,
                                               device="cpu")
     assert pipe["schedule"].cfg.prediction_type == "v_prediction"
     h, w = jp["unet_cfg"].sample_size
@@ -140,7 +139,7 @@ def test_no_ema_leaves_out_the_ema(jax_pipeline, tmp_path):
     assert "unet_ema" not in os.listdir(out)
     jp = jax_sample_ldm.load_any_pipeline(jax_pipeline, dtype=jnp.float32,
                                           use_ema=False)
-    pipe = sample_ldm.load_diffusers_pipeline(out, dtype=torch.float32,
+    pipe = pipeline.load_diffusers_pipeline(out, dtype=torch.float32,
                                               device="cpu")
     want = unet_state_dict_from_jax(jp["unet_params"])
     got = pipe["unet"].state_dict()

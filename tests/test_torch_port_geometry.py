@@ -13,7 +13,7 @@ from rangeldm_tpu import geometry as jg
 from rangeldm_tpu.sample_ldm import adapt_spec_to_model as jax_adapt
 
 from rangeldm_tpu_torch import geometry as tg
-from rangeldm_tpu_torch.sample_ldm import adapt_spec_to_model
+from rangeldm_tpu_torch.pipelines.pipeline import adapt_spec_to_model
 
 
 @pytest.fixture(autouse=True)

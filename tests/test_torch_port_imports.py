@@ -62,6 +62,39 @@ def test_scan_sees_the_whole_package():
         _sources())
 
 
+CLIS = {"sample_ldm", "sample_conditional", "train_ldm", "train_vae",
+        "eval_vae", "evaluate", "parity_gate"}
+LAYERS = ("pipelines", "metrics", "training", "models", "data", "geometry",
+          "parallel", "utils", "ops", "diffusion", "native")
+
+
+def test_no_layer_imports_a_command_line():
+    """The arrows point one way: no module of the package's layers, nor
+    convert.py, imports a top-level CLI module, by any import form."""
+    pkg = ROOT / "rangeldm_tpu_torch"
+    files = [pkg / "convert.py"] + sorted(
+        f for layer in LAYERS for f in (pkg / layer).rglob("*.py"))
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = {a.name for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                # relative imports are read from the package's root
+                base = ".".join(["rangeldm_tpu_torch"] * bool(node.level)
+                                + [node.module] * bool(node.module))
+                names = {base} | {f"{base}.{a.name}" for a in node.names}
+            else:
+                continue
+            bad += [f"{path.relative_to(pkg)}:{node.lineno} {n}"
+                    for n in sorted(names)
+                    if n.split(".")[:2] in (["rangeldm_tpu_torch", c]
+                                            for c in CLIS)]
+    assert len(files) > 50
+    assert not bad, bad
+
+
 def _run(code_or_args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
@@ -98,8 +131,7 @@ def test_training_cli_starts_as_a_module():
 
 
 def test_sampling_cli_starts_as_a_module():
-    """`python -m rangeldm_tpu_torch.sample_ldm` imports cleanly (the CLI
-    module and the pipeline API import each other)."""
+    """`python -m rangeldm_tpu_torch.sample_ldm` imports cleanly."""
     proc = _run(["-m", "rangeldm_tpu_torch.sample_ldm", "--help"])
     assert proc.returncode == 0, proc.stderr
     assert "--device" in proc.stdout and "--pipeline" in proc.stdout

@@ -1,5 +1,5 @@
 """The port's weight loading and entry points (rangeldm_tpu_torch/convert.py,
-sample_ldm.py, pipelines/api.py) against the JAX package's, on a released
+pipelines/pipeline.py, sample_ldm.py, pipelines/api.py) against the JAX package's, on a released
 diffusers-layout pipeline directory whose UNet weights the JAX package
 exported. Everything runs on the CPU, asked for explicitly."""
 
@@ -25,6 +25,7 @@ from rangeldm_tpu.sample_ldm import save_outputs as jax_save_outputs
 from test_released_pipeline import build_fake_release
 
 from rangeldm_tpu_torch import sample_ldm
+from rangeldm_tpu_torch.pipelines import pipeline
 from rangeldm_tpu_torch.convert import (
     load_diffusers_unet, read_safetensors, save_diffusers_pipeline,
     write_safetensors,
@@ -100,14 +101,14 @@ def test_safetensors_round_trip_with_package(tmp_path):
 
 
 def test_released_directory_loads_strictly_and_matches_jax(release):
-    port = sample_ldm.load_diffusers_pipeline(release, dtype=torch.float32,
+    port = pipeline.load_diffusers_pipeline(release, dtype=torch.float32,
                                               device="cpu")
     ref = jax_load(release, dtype=jnp.float32)
     assert port["unet_cfg"].sample_size == ref["unet_cfg"].sample_size
     assert port["vae_cfg"].ch_mult == ref["vae_cfg"].ch_mult
     assert port["schedule"].cfg.prediction_type == "epsilon"
     assert port["meta"]["pos_encoding"] is True
-    assert sample_ldm.pipe_image_size(port) == (32, 128)
+    assert pipeline.pipe_image_size(port) == (32, 128)
 
     h, w = port["unet_cfg"].sample_size
     rng = np.random.default_rng(1)
@@ -189,10 +190,10 @@ def test_save_outputs_matches_jax(tmp_path):
     imgs = np.concatenate([rng.normal(0, 0.6, (2, 32, 128, 1)),
                            rng.uniform(0, 1, (2, 32, 128, 1))],
                           axis=-1).astype(np.float32)
-    spec = sample_ldm.adapt_spec_to_model(get_spec("kitti360"), (32, 128))
+    spec = pipeline.adapt_spec_to_model(get_spec("kitti360"), (32, 128))
     jspec = jax_adapt(jax_get_spec("kitti360"), (32, 128))
     jax_save_outputs(imgs, jspec, str(tmp_path / "jax"), 5)
-    sample_ldm.save_outputs(torch.from_numpy(imgs), spec,
+    pipeline.save_outputs(torch.from_numpy(imgs), spec,
                             str(tmp_path / "port"), 5)
     names = sorted(os.listdir(tmp_path / "jax"))
     assert names == sorted(os.listdir(tmp_path / "port"))
@@ -263,7 +264,7 @@ def test_written_pipeline_reads_back_in_both_packages(tmp_path):
     unet, vae = port_unet(ucfg, uparams), port_vae(vcfg, vparams)
     root = str(tmp_path / "written")
     save_diffusers_pipeline(root, unet, vae, {"prediction_type": "epsilon"})
-    port = sample_ldm.load_diffusers_pipeline(root, dtype=torch.float32,
+    port = pipeline.load_diffusers_pipeline(root, dtype=torch.float32,
                                               device="cpu")
     for a, b in ((unet, port["unet"]), (vae, port["vae"])):
         sa, sb = a.state_dict(), b.state_dict()

@@ -1,6 +1,6 @@
 """The port's VAE training and evaluation command lines
 (rangeldm_tpu_torch/train_vae.py, eval_vae.py), the VAE loader of the
-second stage (train_ldm.load_vae), `RangeLoader.seek` and `save_bev_png`,
+second stage (convert.load_vae), `RangeLoader.seek` and `save_bev_png`,
 on the CPU at toy sizes, held to the JAX package where it has a
 counterpart.
 
@@ -35,11 +35,11 @@ from rangeldm_tpu.training.image_logger import save_bev_png as jax_bev_png
 
 from conftest import synthetic_scan
 from rangeldm_tpu_torch import eval_vae, train_vae
+from rangeldm_tpu_torch.convert import load_vae
 from rangeldm_tpu_torch.data.datasets import (
     DatasetConfig, RangeImageDataset, RangeLoader,
 )
 from rangeldm_tpu_torch.geometry import get_spec
-from rangeldm_tpu_torch.train_ldm import load_vae
 from rangeldm_tpu_torch.training.checkpoint import TrainCheckpointer
 from rangeldm_tpu_torch.training.image_logger import save_bev_png
 from test_torch_port_common import (
@@ -158,7 +158,7 @@ def test_loader_seek_continues_the_epoch(kitti_root):
 
 def test_save_final_loads_in_jax_and_in_the_second_stage(runs, tmp_path):
     """vae_sgm.safetensors: JAX's load_sgm_vae decodes as the port does;
-    train_ldm.load_vae reads it (and an sgm .ckpt) with the trained
+    convert.load_vae reads it (and an sgm .ckpt) with the trained
     shapes; an orbax directory is refused by name."""
     whole = runs[0]
     path = os.path.join(whole.out_dir, "vae_sgm.safetensors")
