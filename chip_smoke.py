@@ -14,11 +14,27 @@ Phases, each printing one JSON line:
                  and bf16, two calls bit-identical, with times, the bound,
                  the floor of the exponentials alone and one PyTorch
                  library call as a yardstick
-  4. unet      - one flagship-width UNet forward (f32) through the kernel
-                 against the same UNet on the plain einsum path
+  3b. group_norm - the GroupNorm -> activation -> wrap kernel pair against
+                 its plain versions at the main paths' GroupNorm sites
+                 (flagship UNet and VAE at batch 32, RangeDM at 8, the
+                 VAE-GAN's float32 at 16), forward and backward, two calls
+                 bit-identical, with times, the bytes bound and PyTorch's
+                 unfused chain (autocast's float32 norm, SiLU, cast, pad)
+  4. unet      - one flagship-width UNet forward (f32) through the kernels
+                 against the same UNet on the plain einsum path; 16
+                 attention and 61 GroupNorm launches (both sides run the
+                 GroupNorm pair: 4 and 4b hold the attention kernels)
   4b. unet_grad - one flagship-width UNet forward and backward (f32)
                  through both kernels against the plain path: every
                  parameter's gradient
+  4c. norm_models - whole models with the GroupNorm pair against the same
+                 models on PyTorch's unfused chain, on the card at the
+                 cells' batches and precisions (flagship UNet trained under
+                 bf16 autocast and sampled in bf16, its VAE's encoder and
+                 decoder, RangeDM's UNet, the VAE-GAN's VAE in f32 with
+                 TF32 convolutions) against the unfused chain in float32:
+                 output and gradients within 1.5 times the unfused chain's
+                 own distance in that precision; the pair's calls a pass
   5. main      - a flagship pipeline directory with seeded random weights at
                  full width, loaded with RangePipeline.from_pretrained and
                  sampled with DDIM-50 and DPM-Solver++-20 in bf16, then
@@ -104,13 +120,16 @@ Phases, each printing one JSON line:
                  the C++ core's and numpy's ms per scan; no attention kernel
                  on this path. Phase 9 also reads its runs' TensorBoard
                  event files back (the port's reader) against their jsonl
-Then the kernel summary line, the card line, and the result line. Any
+Every phase that runs a main path (5-9c) requires the GroupNorm pair's
+calls there: the GroupNorm layers of each model times its passes. Then the
+kernel summary line, the card line, and the result line. Any
 failed check raises, so the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -152,6 +171,32 @@ FLAGSHIP_LAYERS = [(16, 1024, 5), (32, 256, 5), (32, 64, 6)]
 RANGEDM_LAYERS = [(64, 256, 5), (64, 64, 1)]
 RANGEDM_BATCH = 8              # rangedm_kitti360.yaml's, and the dump's
 RAGGED_SHAPE = (5, 8, 200)
+# (model, site, B, C, W, H, eps, dtype, act, shift, wrap): the main paths'
+# GroupNorm sites that hold the most bytes, at their cells' batches
+GN_SITES = [
+    ("rangeldm_kitti360", "unet level 0 norm2", 32, 128, 256, 16, 1e-5,
+     torch.bfloat16, "silu", True, True),
+    ("rangeldm_kitti360", "unet level 0 up norm1", 32, 256, 256, 16, 1e-5,
+     torch.bfloat16, "silu", False, True),
+    ("rangeldm_kitti360", "unet level 1 attention", 32, 128, 128, 8, 1e-5,
+     torch.bfloat16, "identity", False, False),
+    ("rangeldm_kitti360", "unet level 3 norm2", 32, 256, 32, 2, 1e-5,
+     torch.bfloat16, "silu", True, True),
+    ("rangeldm_kitti360", "vae level 0", 32, 64, 1024, 64, 1e-6,
+     torch.bfloat16, "silu", False, True),
+    ("rangedm_kitti360", "unet level 0 norm2", 8, 128, 1024, 64, 1e-5,
+     torch.bfloat16, "silu", True, True),
+    ("rangedm_kitti360", "unet level 0 up norm1", 8, 256, 1024, 64, 1e-5,
+     torch.bfloat16, "silu", False, True),
+    ("vae_gan_kitti360", "vae level 0", 16, 64, 1024, 64, 1e-6,
+     torch.float32, "silu", False, True),
+    ("vae_gan_kitti360", "decoder level 0 norm1", 16, 128, 1024, 64, 1e-6,
+     torch.float32, "silu", False, True),
+]
+GN_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1.6e-2, 3e-2)}
+# phase norm_models: a model with the GroupNorm pair may lie this many
+# times as far from float32 as with the unfused chain in the same precision
+NORM_MODELS_SLACK = 1.5
 # the shipped configs the training command line reads, as data files
 RANGEDM_YAML = os.path.join("rangeldm_tpu", "configs", "rangedm_kitti360.yaml")
 FLAGSHIP_YAML = os.path.join("rangeldm_tpu", "configs",
@@ -294,6 +339,27 @@ def emit(phase: str, **fields):
 def require(cond: bool, msg: str):
     if not cond:
         raise AssertionError(msg)
+
+
+# the GroupNorm pair's counters; the backward's counts calls, of two
+# launches each (the backward and its reduction of dgamma, dbeta)
+GN_KERNELS = ("group_norm_act_fwd", "group_norm_act_bwd")
+
+
+def gn_sites(model) -> int:
+    """The GroupNorm layers of a model: each calls the pair's forward once a
+    forward pass and its backward once a backward pass."""
+    return sum(isinstance(m, torch.nn.GroupNorm) for m in model.modules())
+
+
+def require_gn(kernels, fwd: int, bwd: int, what: str) -> dict:
+    """Require `fwd` forward and `bwd` backward calls of the GroupNorm pair
+    since the last reset of the counters; returns them."""
+    got = {k: kernels.LAUNCHES.get(k, 0) for k in GN_KERNELS}
+    require(got == dict(zip(GN_KERNELS, (fwd, bwd))),
+            f"{what}: the GroupNorm pair launched {got}, expected "
+            f"{(fwd, bwd)}")
+    return got
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -501,6 +567,112 @@ def phase_kernels(attention, clock_hz: float):
     return rows
 
 
+def _gn_library(x, weight, bias, groups, eps, act, shift, wrap):
+    """PyTorch's unfused chain as the modules ran it before the kernel pair:
+    the shift added in x's dtype, autocast's float32 GroupNorm (bf16 x),
+    the activation, the cast back and the conv's circular pad."""
+    with torch.autocast("cuda", dtype=torch.bfloat16,
+                        enabled=x.dtype == torch.bfloat16):
+        if shift is not None:
+            x = x + shift[:, :, None, None]
+        y = F.group_norm(x, groups, weight, bias, eps)
+        y = F.silu(y) if act == "silu" else y
+    y = y.to(x.dtype)
+    return F.pad(y, (0, 0, 1, 1), mode="circular") if wrap else y
+
+
+def phase_group_norm(group_norm):
+    """Each GroupNorm site of GN_SITES, forward and backward: the kernel
+    against its plain version in float32 (forward within one rounding of
+    the dtype, backward within GN_TOL of the largest entry), two calls
+    bit-identical; times of the kernel, its plain version and PyTorch's
+    unfused chain (the backward: autograd through it), and the bytes bound
+    (each input read once, each output written once)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for (model, site, b, c, w, h, eps, dtype, act, with_shift,
+         wrap) in GN_SITES:
+        x = (torch.randn((b, c, w, h), generator=gen, device="cuda") * 2
+             + 0.5).to(dtype)
+        weight = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        shift = (torch.randn((b, c), generator=gen, device="cuda").to(dtype)
+                 if with_shift else None)
+        g = torch.randn((b, c, w + 2 if wrap else w, h), generator=gen,
+                        device="cuda").to(dtype)
+        args = (32, eps, act)
+        xf, sf = x.float(), None if shift is None else shift.float()
+        out, mean, rstd = group_norm._forward(x, weight, bias, shift, *args,
+                                              wrap)
+        again = group_norm._forward(x, weight, bias, shift, *args, wrap)[0]
+        grads = group_norm._backward(x, weight, bias, shift, mean, rstd, g,
+                                     *args, wrap, with_shift)
+        grads2 = group_norm._backward(x, weight, bias, shift, mean, rstd, g,
+                                      *args, wrap, with_shift)
+        want = group_norm.group_norm_act_reference(
+            xf, weight, bias, *args, sf, wrap).to(dtype)
+        want_grads = group_norm.group_norm_act_bwd_reference(
+            xf, weight, bias, *args, sf, g.float(), wrap)
+        torch.cuda.synchronize()
+        fwd_tol, bwd_tol = GN_TOL[dtype]
+        fwd_err = (out.float() - want.float()).abs().max().item()
+        bwd_err = max(
+            (a.float() - r.float()).abs().max().item()
+            / max(r.float().abs().max().item(), 1e-30)
+            for a, r in zip(grads, want_grads) if a is not None)
+        same = torch.equal(out, again) and all(
+            torch.equal(a, a2) for a, a2 in zip(grads, grads2)
+            if a is not None)
+        del again, grads2, want, want_grads
+
+        leaves = [u.detach().requires_grad_(True) if u is not None else None
+                  for u in (x, weight, bias, shift)]
+        lib_out = _gn_library(leaves[0], leaves[1], leaves[2], *args,
+                              leaves[3], wrap)
+        lib_in = [u for u in leaves if u is not None]
+        itemsize = x.element_size()
+        fwd_bytes = (x.numel() + out.numel()) * itemsize
+        bwd_bytes = (x.numel() + g.numel() + x.numel()) * itemsize
+        timed = {
+            "fwd": (lambda: group_norm._forward(x, weight, bias, shift,
+                                                *args, wrap),
+                    lambda: group_norm.group_norm_act_reference(
+                        xf, weight, bias, *args, sf, wrap),
+                    lambda: _gn_library(x, weight, bias, *args, shift,
+                                        wrap), fwd_bytes, fwd_err, fwd_tol),
+            "bwd": (lambda: group_norm._backward(
+                        x, weight, bias, shift, mean, rstd, g, *args, wrap,
+                        with_shift),
+                    lambda: group_norm.group_norm_act_bwd_reference(
+                        x, weight, bias, *args, shift, g, wrap),
+                    lambda: torch.autograd.grad(lib_out, lib_in, g,
+                                                retain_graph=True),
+                    bwd_bytes, bwd_err, bwd_tol)}
+        for direction, (run, plain, library, nbytes, err,
+                        tol) in timed.items():
+            kernel = (group_norm.KERNEL if direction == "fwd"
+                      else group_norm.BWD_KERNEL)
+            p = group_norm.plan(b, c, 32, w, h, itemsize, wrap,
+                                direction == "bwd")
+            row = dict(kernel=kernel, model=model, site=site,
+                       shape=[b, c, w, h], dtype=str(dtype).split(".")[1],
+                       act=act, shift=with_shift, wrap=wrap,
+                       plan=p.as_dict(), max_err=err, tol=tol,
+                       deterministic=same, ms=cuda_ms(run, 20),
+                       plain_ms=cuda_ms(plain, 5),
+                       library_ms=cuda_ms(library, 10),
+                       bound_ms=nbytes / PEAK_BYTES * 1e3, bytes=nbytes)
+            emit("group_norm", **row)
+            require(err <= tol * (1 if direction == "bwd" else
+                                  max(out.float().abs().max().item(), 1)),
+                    f"{kernel} disagrees with its plain version at {site} "
+                    f"{dtype}: {err}")
+            require(same, f"two calls of {kernel} at {site} differ")
+            rows.append(row)
+        del lib_out, leaves, lib_in, out, grads
+    return rows
+
+
 def phase_unet(kernels, models):
     cfg = models.rangeldm_kitti360().unet
     torch.manual_seed(SEED)
@@ -518,13 +690,16 @@ def phase_unet(kernels, models):
         got = fused(x, t)
         torch.cuda.synchronize()
         launches = kernels.LAUNCHES["attention_fwd"]
+        gn_launches = kernels.LAUNCHES["group_norm_act_fwd"]
         want = plain(x, t)
     err = (got - want).abs().max().item()
     emit("unet", dtype="float32", batch=BATCH, latent=[h, w],
          max_abs_err=err, tol=UNET_TOL, launches=launches,
-         out_absmax=want.abs().max().item())
+         group_norm_launches=gn_launches, out_absmax=want.abs().max().item())
     require(launches == 16, f"UNet forward launched attention_fwd "
                             f"{launches} times, expected 16")
+    require(gn_launches == 61, f"UNet forward launched group_norm_act_fwd "
+                               f"{gn_launches} times, expected 61")
     require(err <= UNET_TOL, f"UNet with the kernel differs from the "
                              f"einsum path by {err}")
 
@@ -591,6 +766,152 @@ def phase_unet_grad(kernels, models):
                 f"the plain path launched {kernel}")
 
 
+@contextlib.contextmanager
+def unfused_norms():
+    """Every GroupNorm of the models inside the block on PyTorch's unfused
+    chain (`group_norm_act_reference`: F.group_norm, the activation, the
+    circular pad), on the card too; the kernel pair after it."""
+    from rangeldm_tpu_torch.models import layers
+    from rangeldm_tpu_torch.ops import group_norm
+
+    saved = layers.group_norm_act
+    layers.group_norm_act = group_norm.group_norm_act_reference
+    try:
+        yield
+    finally:
+        layers.group_norm_act = saved
+
+
+def phase_norm_models(kernels, models):
+    """The GroupNorm pair inside whole models, at the cells' batches and
+    precisions: the flagship UNet trained under bf16 autocast and sampled
+    in bf16 weights, the flagship VAE's encoder (autocast, training's
+    encode) and decoder (bf16, sampling's decode), RangeDM's UNet trained
+    under autocast, and the VAE-GAN's VAE trained in float32 with TF32
+    convolutions. Each model runs on the card three times with the same
+    weights and inputs: with the pair, with the unfused chain in the same
+    precision, and with the unfused chain in float32 (TF32 off), the
+    reference. In the output and in all parameter gradients together
+    (relative 2-norms) the pair must lie no further from the reference
+    than NORM_MODELS_SLACK times the unfused chain does: both round the
+    same convolutions, so a fault of the pair shows as a distance of its
+    own on top of the precision's. The pair's calls a pass must equal the
+    model's GroupNorm layers."""
+    from rangeldm_tpu_torch.models.vae import AutoencoderKL, VaeConfig
+
+    flagship, rangedm = models.rangeldm_kitti360(), models.rangedm_kitti360()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def unet(spec, batch):
+        torch.manual_seed(SEED)
+        h, w = spec.unet.sample_size
+        x = randn(batch, spec.unet.in_channels, w, h)
+        t = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+        return (models.UNet2D(spec.unet).cuda(),
+                lambda m: m(x.to(next(m.parameters()).dtype), t))
+
+    def vae(cfg, batch, hw):
+        torch.manual_seed(SEED)
+        return AutoencoderKL(cfg).cuda(), randn(batch, cfg.in_channels,
+                                                hw[1], hw[0])
+
+    # the flagship cells train and sample at batch 32 (TRAIN_BATCH)
+    flag_vae, image = vae(flagship.vae, TRAIN_BATCH, flagship.image_size)
+    h, w = flagship.unet.sample_size
+    z = randn(TRAIN_BATCH, flagship.vae.z_channels, w, h)
+    gan_vae, gan_image = vae(VaeConfig(**VAE_SHAPE), VAE_BATCH,
+                             flagship.image_size)
+
+    def dtype_of(m):
+        return next(m.parameters()).dtype
+
+    # (name, model, run, train, precision); sampling's models hold bf16
+    # weights, training's float32 weights under autocast
+    cases = [
+        ("flagship unet, training", *unet(flagship, TRAIN_BATCH), True,
+         "autocast"),
+        ("flagship vae encoder, training", flag_vae.encoder,
+         lambda m: m(image), False, "autocast"),
+        ("flagship unet, sampling", *unet(flagship, TRAIN_BATCH), False,
+         "bfloat16"),
+        ("flagship vae decoder, sampling", flag_vae.decoder,
+         lambda m: m(z.to(dtype_of(m))), False, "bfloat16"),
+        ("rangedm unet, training", *unet(rangedm, RANGEDM_BATCH), True,
+         "autocast"),
+        ("vae_gan vae, training", gan_vae,
+         lambda m: m(gan_image, sample_posterior=False)[0], True, "tf32")]
+
+    def run(model, fn, train, precision, cotangent=None):
+        model.train(train).zero_grad(set_to_none=True)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = precision == "tf32"
+        kernels.reset_launches()
+        try:
+            with torch.autocast("cuda", torch.bfloat16,
+                                enabled=precision == "autocast"), \
+                    torch.set_grad_enabled(train):
+                out = fn(model).float()
+                if train:
+                    (out * (cotangent if cotangent is not None
+                            else torch.ones_like(out))).mean().backward()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.synchronize()
+        grads = (torch.cat([p.grad.float().flatten() for p in
+                            model.parameters() if p.grad is not None])
+                 if train else None)
+        return out.detach(), grads, {k: kernels.LAUNCHES[k]
+                                     for k in GN_KERNELS}
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    rows = []
+    for name, model, fn, train, precision in cases:
+        ct = None
+        if train:
+            with torch.no_grad(), torch.autocast(
+                    "cuda", torch.bfloat16, enabled=precision == "autocast"):
+                ct = torch.randn(fn(model).shape, generator=gen,
+                                 device="cuda")
+        cell = model.to(torch.bfloat16) if precision == "bfloat16" else model
+        f32 = copy.deepcopy(cell).float()
+        with unfused_norms():
+            ref = run(f32, fn, train, "float32", ct)
+            plain = run(cell, fn, train, precision, ct)
+        fused = run(cell, fn, train, precision, ct)
+        del f32
+        sites = gn_sites(model)
+        # the pair's and the unfused chain's distances from the reference,
+        # and from each other
+        row = dict(model=name, precision=precision, train=train,
+                   out_err=rel(fused[0], ref[0]),
+                   out_err_chain=rel(plain[0], ref[0]),
+                   out_pair_vs_chain=rel(fused[0], plain[0]),
+                   sites=sites, launches=fused[2])
+        if train:
+            row.update(grad_err=rel(fused[1], ref[1]),
+                       grad_err_chain=rel(plain[1], ref[1]),
+                       grad_pair_vs_chain=rel(fused[1], plain[1]))
+        emit("norm_models", **row)
+        require(not any(plain[2].values()) and not any(ref[2].values()),
+                f"{name}: the unfused chain launched {plain[2]}")
+        require(fused[2] == dict(zip(GN_KERNELS, (sites, sites * train))),
+                f"{name}: the GroupNorm pair launched {fused[2]} in a pass "
+                f"of {sites} GroupNorm layers")
+        require(all(row[f"{k}_err"] <= NORM_MODELS_SLACK
+                    * row[f"{k}_err_chain"] for k in ("out", "grad")
+                    if f"{k}_err" in row),
+                f"{name}: with the pair the model lies further from float32 "
+                f"than with the unfused chain in {precision}: {row}")
+        rows.append(row)
+        del ref, plain, fused
+    return rows
+
+
 def phase_main(kernels, models, smi):
     from rangeldm_tpu_torch.convert import save_diffusers_pipeline
     from rangeldm_tpu_torch.pipelines import RangePipeline
@@ -601,7 +922,12 @@ def phase_main(kernels, models, smi):
     unet = models.UNet2D(spec.unet)
     vae = models.AutoencoderKL(spec.vae)
     sched = dataclasses.asdict(spec.schedule)
-    launches = 0
+    launches = dict.fromkeys(("attention_fwd", *GN_KERNELS), 0)
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] += n
+
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "pipeline")
         save_diffusers_pipeline(path, unet, vae, sched)
@@ -610,6 +936,7 @@ def phase_main(kernels, models, smi):
         require(next(pipe._p["unet"].parameters()).dtype == torch.bfloat16,
                 "pipeline is not bf16 by default")
         pipe(batch_size=BATCH, num_inference_steps=2)       # warm-up
+        sites = (gn_sites(pipe._p["unet"]), gn_sites(pipe._p["vae"].decoder))
 
         rates = {}
         for method, steps in (("ddim", 50), ("dpmpp", 20)):
@@ -619,9 +946,11 @@ def phase_main(kernels, models, smi):
                           method=method, seed=SEED)
             dt = time.perf_counter() - t0
             n = kernels.LAUNCHES["attention_fwd"]
-            launches += n
+            gn = require_gn(kernels, sites[0] * steps + sites[1], 0, method)
+            add(dict(attention_fwd=n, **gn))
             rates[method] = dict(steps=steps, seconds=dt,
-                                 samples_per_s=BATCH / dt, launches=n)
+                                 samples_per_s=BATCH / dt, launches=n,
+                                 group_norm_launches=gn)
             require(images.shape == (BATCH, 64, 1024, 2),
                     f"{method}: image shape {images.shape}")
             require(bool(np.isfinite(images).all()),
@@ -640,7 +969,8 @@ def phase_main(kernels, models, smi):
                          str(BATCH), "--batch_size", str(BATCH)])
         cli_s = time.perf_counter() - t0
         n = kernels.LAUNCHES["attention_fwd"]
-        launches += n
+        add(dict(attention_fwd=n, **require_gn(
+            kernels, sites[0] * 50 + sites[1], 0, "sample_ldm.main")))
         require(n == 16 * 50, f"sample_ldm.main: {n} kernel launches")
         files = sorted(os.listdir(out))
         want = sorted(f"{i}{s}" for i in range(BATCH)
@@ -659,6 +989,7 @@ def phase_main(kernels, models, smi):
             unet_ms = cuda_ms(lambda: u(x, t), 10)
             vae_ms = cuda_ms(lambda: v.decode(z), 5)
     emit("main", dtype="bfloat16", batch=BATCH, card=smi, **rates,
+         group_norm_sites=dict(unet=sites[0], vae_decoder=sites[1]),
          cloud_points=[int(c.shape[0]) for c in clouds],
          cli_seconds=cli_s, cli_files=len(files), unet_fwd_ms=unet_ms,
          vae_decode_ms=vae_ms)
@@ -708,6 +1039,10 @@ def phase_train(kernels, smi):
             require(launches.get(kernel) == 16 * TRAIN_STEPS,
                     f"fit launched {kernel} {launches.get(kernel)} times, "
                     f"expected {16 * TRAIN_STEPS}")
+        # a step: the VAE encoder's forward, the UNet's forward and backward
+        unet_sites = gn_sites(trainer.unet)
+        require_gn(kernels, (unet_sites + gn_sites(trainer.vae.encoder))
+                   * TRAIN_STEPS, unet_sites * TRAIN_STEPS, "fit")
         # the log's steps per second count from the start of fit; the
         # steady rate leaves out step 1 (first-call set-up)
         elapsed = [r["step"] / r["sps"] for r in log]
@@ -790,7 +1125,7 @@ def phase_conditional(kernels, models, data_root: str, smi,
                       samples_root: str) -> int:
     """Both full-width conditional models, through the pipeline API and the
     conditional CLI on conditions from the port's dataset; the CLI writes
-    its triplets under `samples_root`. Returns the forward kernel's
+    its triplets under `samples_root`. Returns the forward kernels'
     launches."""
     from rangeldm_tpu_torch import data, sample_conditional
     from rangeldm_tpu_torch.convert import save_diffusers_pipeline
@@ -800,7 +1135,7 @@ def phase_conditional(kernels, models, data_root: str, smi,
     rates = loader_rates(data, data_root)
     emit("conditional", loader_batch=8, scan_points=SCAN_POINTS,
          scans=TRAIN_SCANS, **rates)
-    launches = 0
+    launches = dict.fromkeys(("attention_fwd", *GN_KERNELS), 0)
     with tempfile.TemporaryDirectory() as tmp:
         for spec in (models.rangeldm_upsample(),
                      models.rangeldm_inpainting()):
@@ -830,11 +1165,17 @@ def phase_conditional(kernels, models, data_root: str, smi,
                                     seed=SEED)
 
             call(2)                                          # warm-up
+            # a call: the UNet each step, the decoder, and for inpainting
+            # the encoder on the masked image
+            vae = pipe._p["vae"]
+            want_gn = (gn_sites(pipe._p["unet"]) * 50 + gn_sites(vae.decoder)
+                       + (mode == "inpainting") * gn_sites(vae.encoder))
             kernels.reset_launches()
             t0 = time.perf_counter()
             images = call(50)
             api_s = time.perf_counter() - t0
             n_api = kernels.LAUNCHES["attention_fwd"]
+            gn_api = require_gn(kernels, want_gn, 0, f"{mode} API")
             require(images.shape == (BATCH, 64, 1024, 2),
                     f"{mode}: image shape {images.shape}")
             require(bool(np.isfinite(images).all()),
@@ -850,6 +1191,7 @@ def phase_conditional(kernels, models, data_root: str, smi,
                  "--out", out, "--samples", str(CLI_BATCH)])
             cli_s = time.perf_counter() - t0
             n_cli = kernels.LAUNCHES["attention_fwd"]
+            gn_cli = require_gn(kernels, want_gn, 0, f"{mode} CLI")
             require(written == CLI_BATCH, f"{mode}: CLI wrote {written}")
             require(n_cli == 16 * 50, f"{mode}: the CLI launched the "
                                       f"kernel {n_cli} times")
@@ -865,7 +1207,9 @@ def phase_conditional(kernels, models, data_root: str, smi,
             scores = {k: float(v) for k, v in scores.items()}
             require(all(np.isfinite(v) for v in scores.values()),
                     f"{mode}: MAE {scores}")
-            launches += n_api + n_cli
+            launches["attention_fwd"] += n_api + n_cli
+            for k in GN_KERNELS:
+                launches[k] += gn_api[k] + gn_cli[k]
             emit("conditional", mode=mode, dtype="bfloat16", card=smi,
                  api_batch=BATCH, api_steps=50, api_seconds=api_s,
                  api_samples_per_s=BATCH / api_s, api_launches=n_api,
@@ -926,6 +1270,11 @@ def phase_cond_train(kernels, data_root: str, smi) -> dict:
             require(launches.get(kernel) == 16 * COND_TRAIN_STEPS,
                     f"fit launched {kernel} {launches.get(kernel)} times, "
                     f"expected {16 * COND_TRAIN_STEPS}")
+        # a step: the VAE encoder on the target, the UNet forward and
+        # backward (the condition is the low-resolution scan, not encoded)
+        unet_sites = gn_sites(trainer.unet)
+        require_gn(kernels, (unet_sites + gn_sites(trainer.vae.encoder))
+                   * COND_TRAIN_STEPS, unet_sites * COND_TRAIN_STEPS, "fit")
         elapsed = [r["step"] / r["sps"] for r in log]
         steady = (COND_TRAIN_STEPS - 1) / (elapsed[-1] - elapsed[0])
 
@@ -1090,9 +1439,12 @@ def phase_train_cli(kernels, data_root: str, smi) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
     fields = unet_work("rangedm_kitti360")
-    total = {"attention_fwd": 0, "attention_bwd": 0}
+    total = dict.fromkeys(("attention_fwd", "attention_bwd", *GN_KERNELS),
+                          0)
 
-    def count(expect_fwd, expect_bwd, what):
+    def count(expect_fwd, expect_bwd, what, gn_fwd, gn_bwd):
+        """Attention and GroupNorm (forward, backward) launches since the
+        last reset."""
         torch.cuda.synchronize()
         got = (kernels.LAUNCHES.get("attention_fwd", 0),
                kernels.LAUNCHES.get("attention_bwd", 0))
@@ -1101,6 +1453,8 @@ def phase_train_cli(kernels, data_root: str, smi) -> dict:
                 f"{(expect_fwd, expect_bwd)}")
         total["attention_fwd"] += got[0]
         total["attention_bwd"] += got[1]
+        for k, n in require_gn(kernels, gn_fwd, gn_bwd, what).items():
+            total[k] += n
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "rangedm")
@@ -1121,7 +1475,11 @@ def phase_train_cli(kernels, data_root: str, smi) -> dict:
         fields["run_a_seconds"] = time.perf_counter() - t0
         fields["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         steps = CLI_STEPS[0]
-        count(6 * steps + 6 * 50, 6 * steps, "run A")
+        # pixel space: the UNet alone, trained `steps` steps and sampled
+        # once with DDIM-50 for the dump
+        sites = gn_sites(trainer.unet)
+        count(6 * steps + 6 * 50, 6 * steps, "run A",
+              sites * (steps + 50), sites * steps)
         require(trainer.device.type == "cuda" and trainer.vae is None
                 and trainer.spec.name == "rangedm_kitti360"
                 and trainer.compute_dtype == torch.bfloat16
@@ -1175,7 +1533,8 @@ def phase_train_cli(kernels, data_root: str, smi) -> dict:
         trainer = train_ldm.main(["--cfg", shipped, override, "--max_steps",
                                   str(CLI_STEPS[1])])
         count(6 * (CLI_STEPS[1] - steps), 6 * (CLI_STEPS[1] - steps),
-              "run B")
+              "run B", sites * (CLI_STEPS[1] - steps),
+              sites * (CLI_STEPS[1] - steps))
         log_b = read_log(out)[len(log_a):]
         require([r["step"] for r in log_b]
                 == list(range(steps + 1, CLI_STEPS[1] + 1)),
@@ -1220,7 +1579,7 @@ def phase_train_cli(kernels, data_root: str, smi) -> dict:
         t0 = time.perf_counter()
         images = pipe(batch_size=BATCH, num_inference_steps=50, seed=SEED)
         sample_s = time.perf_counter() - t0
-        count(6 * 50, 0, "pixel DDIM-50")
+        count(6 * 50, 0, "pixel DDIM-50", sites * 50, 0)
         require(images.shape == (BATCH, 64, 1024, 2)
                 and bool(np.isfinite(images).all()),
                 f"pixel samples {images.shape}")
@@ -1250,7 +1609,12 @@ def phase_train_cli(kernels, data_root: str, smi) -> dict:
         kernels.reset_launches()
         trainer = train_ldm.main(["--cfg", os.path.join(here, FLAGSHIP_YAML),
                                   override, "--max_steps", str(CACHE_STEPS)])
-        count(16 * CACHE_STEPS, 16 * CACHE_STEPS, "cache_latents run")
+        # the encode pass over the train drive, then steps on its moments
+        unet_sites = gn_sites(trainer.unet)
+        count(16 * CACHE_STEPS, 16 * CACHE_STEPS, "cache_latents run",
+              unet_sites * CACHE_STEPS + gn_sites(trainer.vae.encoder)
+              * -(-TRAIN_SCANS // trainer.cfg.train_batch_size),
+              unet_sites * CACHE_STEPS)
         log_l = read_log(out_l)
         require([r["step"] for r in log_l] == list(range(1, CACHE_STEPS + 1))
                 and all(np.isfinite(r["loss"]) for r in log_l),
@@ -1370,6 +1734,7 @@ def phase_vae_train(data_root: str, smi) -> dict:
         NLayerDiscriminatorMetaKernel,
     )
     from rangeldm_tpu_torch.models.vae import VaeConfig
+    from rangeldm_tpu_torch.ops import kernels
     from rangeldm_tpu_torch.training import checkpoint
     from rangeldm_tpu_torch.utils.profiling import device_time
 
@@ -1471,6 +1836,7 @@ def phase_vae_train(data_root: str, smi) -> dict:
             train_vae.RangeImageDataset(train_vae.dataset_config(cfg)),
             batch_size=VAE_BATCH)))
         x = trainer._to_device(batch)
+        kernels.reset_launches()
         trainer.train_step(x)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1485,6 +1851,12 @@ def phase_vae_train(data_root: str, smi) -> dict:
             torch.cuda.synchronize()
         fields["profile_tf32"] = dict(wall_ms_per_step=wall,
                                      **device_time(prof, 2, wall))
+        # five steps, each a forward of the VAE in the generator step and
+        # one in the discriminator step, and the generator's backward
+        sites = gn_sites(state.vae)
+        fields["launches"] = require_gn(kernels, 2 * 5 * sites, 5 * sites,
+                                        "five VAE-GAN steps")
+        fields["group_norm_sites"] = sites
         del trainer, state, loaded
 
         # run D to step 6 and run B resumed from D's checkpoint_3, both with
@@ -1549,7 +1921,6 @@ def phase_vae_train(data_root: str, smi) -> dict:
     fields["small_step_card_vs_cpu_rel"] = small["rel"]
     fields["small_step_d_weight"] = small["d_weight"]
     emit("vae_train", config=VAE_YAML, batch=VAE_BATCH, card=smi,
-         launches={"attention_fwd": 0, "attention_bwd": 0},
          seconds=time.perf_counter() - t_phase, **fields)
     return fields
 
@@ -2417,8 +2788,8 @@ def phase_ddp(kernels, data_root: str, smi, device: str = "cuda:0") -> dict:
     statistics, parameters. Then (b) `train_ldm.main` under torchrun, a
     world of one over NCCL, on the flagship YAML over the synthetic root,
     and (e) the C++ projection core against numpy on 120,000-point scans,
-    alone and from 8 threads. Returns the attention launches of the
-    distributed runs."""
+    alone and from 8 threads. Returns the attention and GroupNorm launches
+    of the distributed runs."""
     from rangeldm_tpu_torch import sample_ldm
     from rangeldm_tpu_torch.geometry.projection import range_image_np
     from rangeldm_tpu_torch.geometry.sensors import get_spec
@@ -2429,7 +2800,8 @@ def phase_ddp(kernels, data_root: str, smi, device: str = "cuda:0") -> dict:
 
     script = os.path.abspath(__file__)
     t_phase = time.perf_counter()
-    launches = {"attention_fwd": 0, "attention_bwd": 0}
+    attention = ("attention_fwd", "attention_bwd")
+    launches = dict.fromkeys((*attention, *GN_KERNELS), 0)
 
     def count(*dicts):
         for d in dicts:
@@ -2451,6 +2823,9 @@ def phase_ddp(kernels, data_root: str, smi, device: str = "cuda:0") -> dict:
             json.dump(TRAIN_CFG, f)
         trainer = LdmTrainer(dict(TRAIN_CFG, output_dir=ref_dir),
                              device=device)
+        unet_sites = gn_sites(trainer.unet)
+        enc_sites = gn_sites(trainer.vae.encoder)
+        dec_sites = gn_sites(trainer.vae.decoder)
         h, w = trainer.spec.image_size
         batch = TRAIN_CFG["train_batch_size"]
         ref = to_cpu(ddp_fit(trainer, ddp_batches(batch, h, w,
@@ -2489,12 +2864,19 @@ def phase_ddp(kernels, data_root: str, smi, device: str = "cuda:0") -> dict:
                 "ddp (a): the ranks' states or gradients differ")
         require(r0["backend"] == "gloo" and r0["world"] == DDP_RANKS,
                 f"ddp (a): {r0['backend']}, world {r0['world']}")
+        # a step: the VAE encoder, the UNet forward and backward
+        gn_want = ((unet_sites + enc_sites) * DDP_STEPS,
+                   unet_sites * DDP_STEPS)
         for r in (r0, r1):
-            for k in launches:
+            for k in attention:
                 require(r["a_launches"].get(k) == 16 * DDP_STEPS,
                         f"ddp (a): rank {r['rank']} launched {k} "
                         f"{r['a_launches'].get(k)} times, expected "
                         f"{16 * DDP_STEPS}")
+            got = tuple(r["a_launches"].get(k) for k in GN_KERNELS)
+            require(got == gn_want, f"ddp (a): rank {r['rank']} launched the "
+                                    f"GroupNorm pair {got}, expected "
+                                    f"{gn_want}")
         count(r0["a_launches"], r1["a_launches"])
         log, ref_log = read_log(os.path.join(a_dir, "run")), read_log(ref_dir)
         require([x["step"] for x in log] == list(range(1, DDP_STEPS + 1)),
@@ -2524,10 +2906,14 @@ def phase_ddp(kernels, data_root: str, smi, device: str = "cuda:0") -> dict:
         # (d)
         n_batches = -(-DDP_SAMPLES // DDP_SAMPLE_BATCH)
         for r in (r0, r1):
-            want = 16 * DDP_SAMPLE_STEPS * len(range(r["rank"], n_batches,
-                                                     DDP_RANKS))
-            require(r["d_launches"].get("attention_fwd") == want,
-                    f"ddp (d): rank {r['rank']} {r['d_launches']}")
+            calls = len(range(r["rank"], n_batches, DDP_RANKS))
+            want = 16 * DDP_SAMPLE_STEPS * calls
+            gn_want = (unet_sites * DDP_SAMPLE_STEPS + dec_sites) * calls
+            require(r["d_launches"].get("attention_fwd") == want
+                    and r["d_launches"].get(GN_KERNELS[0]) == gn_want
+                    and r["d_launches"].get(GN_KERNELS[1]) == 0,
+                    f"ddp (d): rank {r['rank']} {r['d_launches']}, expected "
+                    f"{want} attention and {gn_want} GroupNorm launches")
         count(r0["d_launches"], r1["d_launches"])
         files = sorted(os.listdir(one))
         require(files == sorted(os.listdir(two))
@@ -2589,9 +2975,14 @@ def phase_ddp(kernels, data_root: str, smi, device: str = "cuda:0") -> dict:
         require(rb["backend"] == ("nccl" if "cuda" in device else "gloo")
                 and rb["world"] == 1,
                 f"ddp (b): {rb['backend']}, world {rb['world']}")
-        for k in launches:
+        for k in attention:
             require(rb["launches"].get(k) == 16 * DDP_CLI_STEPS,
                     f"ddp (b): {k} launched {rb['launches'].get(k)} times")
+        gn_want = ((unet_sites + enc_sites) * DDP_CLI_STEPS,
+                   unet_sites * DDP_CLI_STEPS)
+        got = tuple(rb["launches"].get(k) for k in GN_KERNELS)
+        require(got == gn_want, f"ddp (b): the GroupNorm pair launched {got}, "
+                                f"expected {gn_want}")
         count(rb["launches"])
         log = read_log(b_dir)
         require([x["step"] for x in log] == list(range(1, DDP_CLI_STEPS + 1))
@@ -2778,12 +3169,15 @@ def phase_projection(smi, device: str = "cuda:0") -> dict:
     return out
 
 
-def summary(rows, launches):
+def summary(rows, launches, gn_rows, norm_rows):
     """One entry per kernel, over the attention layers of one flagship UNet
     in bf16 at the batch of the path that carries it most: the forward at
     sampling batch 4, the backward at training batch 32. Time, plain time
     and library time are summed over those layers; the bound is that of
-    the same work; the error is the largest at those shapes."""
+    the same work; the error is the largest at those shapes. The GroupNorm
+    pair's entries sum its GN_SITES rows, one call each; their launches
+    are the main paths' calls (the backward's, of two launches each), and
+    those of one flagship UNet pass are measured in phase norm_models."""
     entries = []
     for kernel, batch, replaces in (
             ("attention_fwd", BATCH, "rangeldm_tpu/ops/attention.py:48"),
@@ -2806,6 +3200,20 @@ def summary(rows, launches):
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": total("library_ms")})
+    (unet,) = [r for r in norm_rows
+               if r["model"] == "flagship unet, training"]
+    for kernel in GN_KERNELS:
+        main = [r for r in gn_rows if r["kernel"] == kernel]
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "rangeldm_tpu_torch/csrc/group_norm_act.cu",
+            "replaces": None, "sites": len(main),
+            "launches": launches[kernel],
+            "launches_per_flagship_unet": unet["launches"][kernel],
+            "max_err": max(r["max_err"] for r in main),
+            **{key: sum(r[key] for r in main) for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes"})
     return {"kernels": entries}
 
 
@@ -2822,29 +3230,40 @@ def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rangeldm_tpu_torch import models
-    from rangeldm_tpu_torch.ops import attention, kernels
+    from rangeldm_tpu_torch.ops import attention, group_norm, kernels
 
     smi, clock_hz = phase_device()
     phase_build(kernels)
     rows = phase_kernels(attention, clock_hz)
+    gn_rows = phase_group_norm(group_norm)
     phase_unet(kernels, models)
     phase_unet_grad(kernels, models)
-    launches = {"attention_fwd": phase_main(kernels, models, smi)}
-    trained = phase_train(kernels, smi)
+    norm_rows = phase_norm_models(kernels, models)
+    # the hand-written kernels' launches over the main paths
+    launches = dict.fromkeys(("attention_fwd", "attention_bwd", *GN_KERNELS),
+                             0)
+
+    def add(got):
+        for k in launches:
+            launches[k] += got.get(k, 0)
+
+    add(phase_main(kernels, models, smi))
+    add(phase_train(kernels, smi))
     with tempfile.TemporaryDirectory() as tmp:
         data_root = make_kitti_root(os.path.join(tmp, "kitti360"))
         samples_root = os.path.join(tmp, "samples")
-        launches["attention_fwd"] += phase_conditional(
-            kernels, models, data_root, smi, samples_root)
-        cond_trained = phase_cond_train(kernels, data_root, smi)
-        cli = phase_train_cli(kernels, data_root, smi)
+        add(phase_conditional(kernels, models, data_root, smi, samples_root))
+        add(phase_cond_train(kernels, data_root, smi))
+        add(phase_train_cli(kernels, data_root, smi))
         kernels.reset_launches()
-        phase_vae_train(data_root, smi)
+        vae = phase_vae_train(data_root, smi)
         torch.cuda.synchronize()
-        require(not any(kernels.LAUNCHES.values()),
+        require(not any(kernels.LAUNCHES[k] for k in ("attention_fwd",
+                                                      "attention_bwd")),
                 f"VAE-GAN training launched {kernels.LAUNCHES}: its path "
                 f"holds no attention")
-        ddp = phase_ddp(kernels, data_root, smi)
+        add(vae["launches"])
+        add(phase_ddp(kernels, data_root, smi))
         launches["attention_fwd"] += phase_eval(kernels, models,
                                                 samples_root, smi)
     phase_t64(models, smi)
@@ -2855,16 +3274,8 @@ def main() -> int:
     require(not any(kernels.LAUNCHES.values()),
             f"the projection launched {kernels.LAUNCHES}: its path holds no "
             f"attention")
-    launches["attention_fwd"] += (trained["attention_fwd"]
-                                  + cond_trained["attention_fwd"]
-                                  + cli["attention_fwd"])
-    launches["attention_fwd"] += ddp["attention_fwd"]
-    launches["attention_bwd"] = (trained["attention_bwd"]
-                                 + cond_trained["attention_bwd"]
-                                 + cli["attention_bwd"]
-                                 + ddp["attention_bwd"])
     emit("total", seconds=time.perf_counter() - t_start)
-    print(json.dumps(summary(rows, launches)))
+    print(json.dumps(summary(rows, launches, gn_rows, norm_rows)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,11 @@
 reference's Conv2d, vae/sgm/modules/diffusionmodules/model.py:93-108). Its
 weight is the torch state-dict layout (O, I, k_azimuth, k_beam), so released
 checkpoints load as they are.
+
+`norm_act` and `norm_act_conv` run every GroupNorm of the UNet and the VAE
+through `ops.group_norm.group_norm_act`: the norm, its activation and, where
+the next conv takes it, that conv's azimuth wrap in one pass; the conv then
+runs with `wrapped=True` and pads nothing.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from rangeldm_tpu_torch.ops.group_norm import group_norm_act
 
 Padding = Union[int, Tuple[int, int], Tuple[Tuple[int, int], Tuple[int, int]]]
 
@@ -47,7 +54,22 @@ class CircularConv(nn.Conv2d):
         self.circular = circular
         self.coord = coord
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def takes_wrapped(self) -> bool:
+        """Whether `forward(x, wrapped=True)` can take this conv's input:
+        3x3, circular, one azimuth row of wrap on each side, no coordinate
+        channel, equal beam padding."""
+        return (self.circular and not self.coord
+                and self.kernel_size == (3, 3) and self.w_lo == self.w_hi == 1
+                and self.h_lo == self.h_hi)
+
+    def forward(self, x: torch.Tensor, wrapped: bool = False) -> torch.Tensor:
+        """`wrapped`: x is already (B, C, W + 2, H) with rows 0 and W + 1
+        holding rows W - 1 and 0, as this conv would pad it
+        (`takes_wrapped` convs only)."""
+        if wrapped:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            (0, self.h_lo))
         if self.coord:
             b, _, w, h = x.shape
             coords = torch.linspace(-1.0, 1.0, h, dtype=x.dtype,
@@ -79,6 +101,28 @@ def nonlinearity(x: torch.Tensor, kind: str = "silu") -> torch.Tensor:
     if kind == "relu":
         return F.relu(x)
     raise NotImplementedError(kind)
+
+
+def norm_act(norm: nn.GroupNorm, x: torch.Tensor, act: str = "identity",
+             shift: torch.Tensor = None, wrap: bool = False) -> torch.Tensor:
+    """act(norm(x + shift[:, :, None, None])), azimuth-wrapped for a
+    `CircularConv(..., wrapped=True)` when `wrap`, through
+    `group_norm_act`."""
+    return group_norm_act(x, norm.weight, norm.bias, norm.num_groups,
+                          norm.eps, act, shift, wrap)
+
+
+def norm_act_conv(norm: nn.GroupNorm, x: torch.Tensor, act: str,
+                  conv: CircularConv, shift: torch.Tensor = None,
+                  dropout: nn.Dropout = None) -> torch.Tensor:
+    """conv(dropout(act(norm(x + shift)))). Where the conv takes a wrapped
+    input and the dropout is the identity, the norm writes the conv's
+    wrapped input and the conv runs without its pad."""
+    if conv.takes_wrapped and (dropout is None or dropout.p == 0
+                               or not dropout.training):
+        return conv(norm_act(norm, x, act, shift, wrap=True), wrapped=True)
+    y = norm_act(norm, x, act, shift)
+    return conv(y if dropout is None else dropout(y))
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -141,9 +185,9 @@ class VaeResnetBlock(nn.Module):
                                                  1, 1, 0, circular=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(nonlinearity(self.norm1(x), self.act))
-        h = self.dropout(nonlinearity(self.norm2(h), self.act))
-        h = self.conv2(h)
+        h = norm_act_conv(self.norm1, x, self.act, self.conv1)
+        h = norm_act_conv(self.norm2, h, self.act, self.conv2,
+                          dropout=self.dropout)
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         elif hasattr(self, "nin_shortcut"):
@@ -164,7 +208,7 @@ class VaeAttnBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, w, h = x.shape
-        y = self.norm(x)
+        y = norm_act(self.norm, x)
         q, k, v = ((m(y).reshape(b, c, w * h).transpose(1, 2))
                    for m in (self.q, self.k, self.v))
         o = attention_1head(q, k, v).transpose(1, 2).reshape(b, c, w, h)

@@ -21,7 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from rangeldm_tpu_torch.models.layers import (
-    CircularConv, timestep_embedding, upsample_nearest,
+    CircularConv, norm_act, norm_act_conv, timestep_embedding,
+    upsample_nearest,
 )
 from rangeldm_tpu_torch.ops.attention import (
     attention_t_reference, fused_attention_t,
@@ -95,9 +96,10 @@ class ResnetBlock2D(nn.Module):
                                               1, 0, circular=False)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(self.dropout(F.silu(self.norm2(h))))
+        h = norm_act_conv(self.norm1, x, "silu", self.conv1)
+        h = norm_act_conv(self.norm2, h, "silu", self.conv2,
+                          shift=self.time_emb_proj(F.silu(temb)),
+                          dropout=self.dropout)
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -139,7 +141,7 @@ class Attention(nn.Module):
         b, c, w, h = x.shape
         t = w * h
         hd = c // self.heads
-        yt = self.group_norm(x).reshape(b, c, t)
+        yt = norm_act(self.group_norm, x).reshape(b, c, t)
         qt, kt, vt = (_channel_linear(m, yt).reshape(b * self.heads, hd, t)
                       for m in (self.to_q, self.to_k, self.to_v))
         attend = (attention_t_reference if self.use_fused is False
@@ -323,5 +325,4 @@ class UNet2D(nn.Module):
         for blk in self.up_blocks:
             x = blk(x, skips, temb)
         assert not skips
-        x = F.silu(self.conv_norm_out(x))
-        return self.conv_out(x)
+        return norm_act_conv(self.conv_norm_out, x, "silu", self.conv_out)

@@ -20,7 +20,7 @@ import torch.nn as nn
 
 from rangeldm_tpu_torch.models.layers import (
     CircularConv, VaeAttnBlock, VaeDownsample, VaeResnetBlock, VaeUpsample,
-    group_norm, nonlinearity,
+    group_norm, norm_act, norm_act_conv,
 )
 
 
@@ -126,7 +126,7 @@ class Encoder(nn.Module):
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid(h)
-        return self.conv_out(nonlinearity(self.norm_out(h), self.act))
+        return norm_act_conv(self.norm_out, h, self.act, self.conv_out)
 
 
 class Decoder(nn.Module):
@@ -166,8 +166,9 @@ class Decoder(nn.Module):
             h = level.blocks(h)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        h = nonlinearity(self.norm_out(h), self.act)
-        return h if pre_end else self.conv_out(h)
+        if pre_end:
+            return norm_act(self.norm_out, h, self.act)
+        return norm_act_conv(self.norm_out, h, self.act, self.conv_out)
 
 
 def gaussian_params(moments: torch.Tensor):
