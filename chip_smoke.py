@@ -51,7 +51,10 @@ Phases, each printing one JSON line:
                  on the held-out scans and the MAE metrics of its triplets
   8. cond_train - LdmTrainer on the shipped upsample config (batch 32, bf16)
                  for 5 steps, one epoch of the port's RangeLoader over the
-                 train drive, then save_final, reload and a 2-step upsample
+                 train drive, then save_final, reload and a 2-step upsample;
+                 then on the shipped inpainting config for 5 steps the same
+                 way (two encodes a step); each fit eager, captured, then
+                 replayed from the step's CUDA graph
   9. train_cli - the training command line (`train_ldm.main`) on the shipped
                  pixel-space RangeDM config (rangedm_kitti360.yaml, full
                  width, batch 8, bf16) plus an override file, over the
@@ -1221,62 +1224,84 @@ def phase_conditional(kernels, models, data_root: str, smi,
     return launches
 
 
+def cond_fit(kernels, cfg: dict, data_root: str, out_dir: str, **ds_kw):
+    """LdmTrainer.fit on the conditional config `cfg` for COND_TRAIN_STEPS
+    steps at batch 32 in bf16, fed by the port's RangeLoader over the train
+    drive (the dataset's condition from `ds_kw`). Returns the trainer, the
+    dataset, its train log, the fit's kernel launches, its peak memory
+    (GiB), its steady steps a second and its first step's seconds."""
+    from rangeldm_tpu_torch import data
+    from rangeldm_tpu_torch.train_ldm import LdmTrainer
+    from rangeldm_tpu_torch.utils import profiling
+
+    dcfg = dict(cfg["data"], root=data_root)
+    cfg = dict(cfg, output_dir=out_dir, data=dcfg)
+    trainer = LdmTrainer(cfg)
+    require(trainer.device.type == "cuda", "trainer is not on CUDA")
+    require(trainer.cond_fn is not None, "no condition")
+    ds = data.RangeImageDataset(data.DatasetConfig(
+        root=dcfg["root"], sensor=dcfg["sensor"], **ds_kw))
+    loader = data.RangeLoader(ds, batch_size=cfg["train_batch_size"],
+                              seed=SEED)
+    require(len(loader) == COND_TRAIN_STEPS,
+            f"{len(loader)} batches an epoch")
+    batches = iter(loader)
+    params0 = [p.detach().clone() for p in trainer.unet.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t_fit = time.time_ns()
+    trainer.fit(batches, max_steps=COND_TRAIN_STEPS, log_every=1,
+                loader=loader)
+    batches.close()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    require([r["step"] for r in log] == list(range(1, COND_TRAIN_STEPS + 1)),
+            f"train log steps {[r['step'] for r in log]}")
+    require(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                for r in log), f"non-finite loss or grad_norm: {log}")
+    moved = sum(not torch.equal(a, b)
+                for a, b in zip(params0, trainer.unet.parameters()))
+    require(moved == len(params0), f"{moved} of {len(params0)} "
+                                   f"parameters changed")
+    # eager, captured, then replayed from the step's CUDA graph
+    kinds = [s.name for s in profiling.spans() if s.start_ns >= t_fit
+             and s.name in ("train_eager", "train_graph_capture",
+                            "train_graph_replay")]
+    require(kinds == ["train_eager", "train_graph_capture"]
+            + ["train_graph_replay"] * (COND_TRAIN_STEPS - 2),
+            f"the fit's steps ran {kinds}")
+    for kernel in ("attention_fwd", "attention_bwd"):
+        require(launches.get(kernel) == 16 * COND_TRAIN_STEPS,
+                f"fit launched {kernel} {launches.get(kernel)} times, "
+                f"expected {16 * COND_TRAIN_STEPS}")
+    elapsed = [r["step"] / r["sps"] for r in log]
+    steady = (COND_TRAIN_STEPS - 1) / (elapsed[-1] - elapsed[0])
+    return trainer, ds, log, launches, peak, steady, elapsed[0]
+
+
 def phase_cond_train(kernels, data_root: str, smi) -> dict:
-    """LdmTrainer.fit on UPSAMPLE_CFG for COND_TRAIN_STEPS steps at batch
-    32 in bf16, fed by the port's RangeLoader over the train drive, then
-    save_final, reload and a 2-step upsample. Returns the launches of each
-    kernel in the fit."""
+    """The conditional trainers at batch 32 in bf16 through RangeLoader
+    (`cond_fit`): UPSAMPLE_CFG, then save_final, reload and a 2-step
+    upsample; INPAINT_CFG. Returns the launches of each kernel in the two
+    fits."""
     from rangeldm_tpu_torch import data
     from rangeldm_tpu_torch.pipelines import RangePipeline
-    from rangeldm_tpu_torch.train_ldm import LdmTrainer
 
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        dcfg = dict(UPSAMPLE_CFG["data"], root=data_root)
-        cfg = dict(UPSAMPLE_CFG, output_dir=os.path.join(tmp, "run"),
-                   data=dcfg)
-        trainer = LdmTrainer(cfg)
-        require(trainer.device.type == "cuda", "trainer is not on CUDA")
-        require(trainer.cond_fn is not None, "no condition")
-        ds = data.RangeImageDataset(data.DatasetConfig(
-            root=dcfg["root"], sensor=dcfg["sensor"],
-            downsample=cfg["upsample"]))
-        loader = data.RangeLoader(ds, batch_size=cfg["train_batch_size"],
-                                  seed=SEED)
-        require(len(loader) == COND_TRAIN_STEPS,
-                f"{len(loader)} batches an epoch")
-        batches = iter(loader)
-        params0 = [p.detach().clone() for p in trainer.unet.parameters()]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        trainer.fit(batches, max_steps=COND_TRAIN_STEPS, log_every=1,
-                    loader=loader)
-        batches.close()
-        torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        with open(os.path.join(cfg["output_dir"], "train_log.jsonl")) as f:
-            log = [json.loads(line) for line in f]
-        require([r["step"] for r in log]
-                == list(range(1, COND_TRAIN_STEPS + 1)),
-                f"train log steps {[r['step'] for r in log]}")
-        require(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
-                    for r in log), f"non-finite loss or grad_norm: {log}")
-        moved = sum(not torch.equal(a, b)
-                    for a, b in zip(params0, trainer.unet.parameters()))
-        require(moved == len(params0), f"{moved} of {len(params0)} "
-                                       f"parameters changed")
-        for kernel in ("attention_fwd", "attention_bwd"):
-            require(launches.get(kernel) == 16 * COND_TRAIN_STEPS,
-                    f"fit launched {kernel} {launches.get(kernel)} times, "
-                    f"expected {16 * COND_TRAIN_STEPS}")
+        trainer, ds, log, launches, peak_gib, steady, first = cond_fit(
+            kernels, UPSAMPLE_CFG, data_root, os.path.join(tmp, "run"),
+            downsample=UPSAMPLE_CFG["upsample"])
         # a step: the VAE encoder on the target, the UNet forward and
         # backward (the condition is the low-resolution scan, not encoded)
         unet_sites = gn_sites(trainer.unet)
         require_gn(kernels, (unet_sites + gn_sites(trainer.vae.encoder))
                    * COND_TRAIN_STEPS, unet_sites * COND_TRAIN_STEPS, "fit")
-        elapsed = [r["step"] / r["sps"] for r in log]
-        steady = (COND_TRAIN_STEPS - 1) / (elapsed[-1] - elapsed[0])
+        total = dict(launches)
 
         pipe = RangePipeline.from_pretrained(trainer.save_final())
         require(pipe.cond_channels == 8,
@@ -1286,15 +1311,37 @@ def phase_cond_train(kernels, data_root: str, smi) -> dict:
         require(images.shape == (BATCH, 64, 1024, 2) and
                 bool(np.isfinite(images).all()),
                 f"upsample from the trained pipeline: {images.shape}")
-    emit("cond_train", config="upsample", dtype="bfloat16",
-         batch=cfg["train_batch_size"], steps=COND_TRAIN_STEPS, card=smi,
-         losses=[r["loss"] for r in log],
+        emit("cond_train", config="upsample", dtype="bfloat16",
+             batch=UPSAMPLE_CFG["train_batch_size"], steps=COND_TRAIN_STEPS,
+             card=smi, losses=[r["loss"] for r in log],
+             grad_norms=[r["grad_norm"] for r in log],
+             data_wait_frac=[r["data_wait_frac"] for r in log],
+             steps_per_s=steady, samples_per_s=steady * TRAIN_BATCH,
+             first_step_s=first, peak_memory_gib=peak_gib, launches=launches)
+        del trainer, pipe
+
+        trainer, ds, log, launches, peak_gib, steady, first = cond_fit(
+            kernels, INPAINT_CFG, data_root, os.path.join(tmp, "inpaint"),
+            inpainting=INPAINT_CFG["inpainting"])
+        # a step: the VAE encoder on the target and on the masked scan, the
+        # UNet forward and backward
+        unet_sites = gn_sites(trainer.unet)
+        require(unet_sites == 61 and gn_sites(trainer.vae.encoder) == 17,
+                f"GroupNorm layers: UNet {unet_sites}, encoder "
+                f"{gn_sites(trainer.vae.encoder)}")
+        require_gn(kernels, 95 * COND_TRAIN_STEPS, 61 * COND_TRAIN_STEPS,
+                   "inpainting fit")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    emit("cond_train", config="inpainting", dtype="bfloat16",
+         batch=INPAINT_CFG["train_batch_size"], steps=COND_TRAIN_STEPS,
+         card=smi, losses=[r["loss"] for r in log],
          grad_norms=[r["grad_norm"] for r in log],
          data_wait_frac=[r["data_wait_frac"] for r in log],
          steps_per_s=steady, samples_per_s=steady * TRAIN_BATCH,
-         first_step_s=elapsed[0], peak_memory_gib=peak_gib,
-         launches=launches)
-    return launches
+         first_step_s=first, peak_memory_gib=peak_gib, launches=launches,
+         seconds=time.perf_counter() - t0)
+    return total
 
 
 def write_yaml(path: str, cfg: dict) -> str:

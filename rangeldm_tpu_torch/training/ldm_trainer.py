@@ -39,8 +39,11 @@ gradients to None before the backward, so the captured backward owns
 static gradient buffers. Under torch.distributed (the all-reduce), on the
 CPU, and with draws given, the step stays eager. Each step leaves one
 span: `train_graph_replay`, `train_graph_capture` or `train_eager`; the
-`encode`, `forward`, `backward`, `clip`, `adamw` and `ema` spans lie under
-the last two, and a replay has none.
+`encode` (> `condition`, on a conditional step: the condition's posterior
+draw and its encode, resize and concat), `forward`, `backward`, `clip`,
+`adamw` and `ema` spans lie under the last two, and a replay has none.
+`train_step.graphs` is the step's `GraphCache`: each captured graph keeps
+where those spans' work lies in it (`Captured.phases`).
 """
 
 from __future__ import annotations
@@ -195,8 +198,6 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
 
     @torch.no_grad()
     def condition(batch, generator, posterior_noise):
-        if cond_fn is None:
-            return None
         if not isinstance(batch, dict):
             raise ValueError("a conditional step takes a batch dict with "
                              "its condition inputs")
@@ -254,14 +255,19 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
         checks."""
         with step_annotation("encode"):
             latents = encode(batch, generator, posterior_noise)
-            dev = latents.device
-            if (cond_posterior_noise is None and cond_fn is not None
-                    and isinstance(batch, dict) and "masked_image" in batch):
-                # the inpainting condition's posterior draw of the masked
-                # image (of the latents' shape)
-                cond_posterior_noise = global_draw(lambda s: torch.randn(
-                    s, generator=generator, device=dev), latents.shape)
-            cond = condition(batch, generator, cond_posterior_noise)
+            cond = None
+            if cond_fn is not None:
+                with step_annotation("condition"):
+                    dev = latents.device
+                    if (cond_posterior_noise is None
+                            and isinstance(batch, dict)
+                            and "masked_image" in batch):
+                        # the inpainting condition's posterior draw of the
+                        # masked image (of the latents' shape)
+                        cond_posterior_noise = global_draw(
+                            lambda s: torch.randn(s, generator=generator,
+                                                  device=dev), latents.shape)
+                    cond = condition(batch, generator, cond_posterior_noise)
         if weight is None:
             weight = scalars(state)
         model = state.model
@@ -334,4 +340,5 @@ def make_ldm_train_step(schedule: Schedule, cfg: LdmTrainConfig,
         state.step += 1
         return out
 
+    train_step.graphs = graphs
     return train_step

@@ -23,8 +23,9 @@ boundaries only:
                   unet_eager), sampler_update, vae_decode, to_host
     train_step > batch_wait (> loader_wait), to_device, one of
                  train_graph_replay, train_graph_capture or train_eager
-                 (the last two > encode, forward, backward, clip, adamw,
-                 ema), log_sync, checkpoint, sample_dump
+                 (the last two > encode (> condition), forward,
+                 backward, clip, adamw, ema), log_sync, checkpoint,
+                 sample_dump
     trainer_init > build_models, optimizer, ema_clone
 
 `spans()` reads the ring, `span_summary()` sums it by name beside
@@ -43,7 +44,7 @@ import re
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterable, List, NamedTuple, Optional
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 
 import torch
 from torch.autograd import DeviceType
@@ -108,15 +109,30 @@ _PROFILING = torch._C._autograd._profiler_enabled
 _LOCAL = threading.local()
 
 
-def _thread() -> tuple:
-    """(the ids of the spans open on this thread, innermost last; the
-    thread's id). A plain thread-local read is faster than an attribute of
-    a threading.local subclass."""
+def _thread() -> list:
+    """[the ids of the spans open on this thread, innermost last; the
+    thread's id; the thread's observer of span boundaries, or None]. A
+    plain thread-local read is faster than an attribute of a
+    threading.local subclass."""
     try:
         return _LOCAL.state
     except AttributeError:
-        _LOCAL.state = ([], threading.get_ident())
+        _LOCAL.state = [[], threading.get_ident(), None]
         return _LOCAL.state
+
+
+@contextlib.contextmanager
+def observe_spans(observer: Callable[[str, bool], None]):
+    """Within the block, `observer(name, True)` as each span of this thread
+    begins and `observer(name, False)` as it ends, outside its timed part
+    (a CUDA graph's capture learns so where each span's work lies in the
+    graph, utils/graphs.py)."""
+    state = _thread()
+    outer, state[2] = state[2], observer
+    try:
+        yield
+    finally:
+        state[2] = outer
 
 
 class step_annotation:
@@ -141,14 +157,18 @@ class step_annotation:
         self._range = _FAST(self.name) if _PROFILING() else None
         if self._range is not None:
             self._range.__enter__()
+        if thread[2] is not None:
+            thread[2](self.name, True)
         self.start = time.time_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
         end = time.time_ns()
+        stack, ident, observer = self._thread
+        if observer is not None:
+            observer(self.name, False)
         if self._range is not None:
             self._range.__exit__(exc_type, exc, tb)
-        stack, ident = self._thread
         stack.pop()
         if self._keep:
             _RING.append((self.name, self.id, self.parent, ident,
@@ -163,7 +183,7 @@ class step_annotation:
 def record_span(name: str, start_ns: int, end_ns: int) -> None:
     """Append a span the caller timed itself with `time.time_ns()`, as a
     child of the span open on this thread; it makes no trace event."""
-    stack, ident = _thread()
+    stack, ident, _ = _thread()
     _RING.append((name, next(_IDS), stack[-1] if stack else 0, ident,
                   start_ns, end_ns))
 

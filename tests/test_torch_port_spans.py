@@ -4,8 +4,11 @@ VAE-GAN training and sampling paths put them, their parents across
 threads, the ring's bound, their clock against torch.profiler's, the
 idle-gap label they give perfbench/trace.py, the benchmark's readers of
 host time by layer (perfbench/metrics/host_*.py, trainer_init_s.train.py),
-and its device time by span (perfbench/span_device.py and the readers
-of the VAE-GAN cell)."""
+its device time by span (perfbench/span_device.py and the readers of the
+VAE-GAN cell), the conditional step's `condition` span under `encode`,
+the observer a graph's capture sets (`observe_spans`), and the split of a
+replayed graph's device time by phase (perfbench/graph_phases.py and the
+inpainting cell's reader)."""
 
 import threading
 import time
@@ -94,6 +97,63 @@ def test_fit_leaves_a_train_step_root_per_step(tmp_path):
         assert 0 <= stats["self_ms"] <= stats["total_ms"]
     # the exhausted iterator's last pull leaves nothing
     assert summary["batch_wait"]["count"] == 3
+
+
+@pytest.mark.parametrize("mode", ["inpainting", "unconditional"])
+def test_condition_span_lies_under_encode(tmp_path, mode):
+    """An inpainting step opens `condition` (the masked image's posterior
+    draw, encode, mask resize and concat) as the one child of `encode`; an
+    unconditional step's `encode` has no child."""
+    cfg = {}
+    if mode == "inpainting":
+        cfg = dict(model_config=dict(TRAIN_CFG["model_config"],
+                                     in_channels=9),
+                   pos_encoding=False, inpainting=0.0625)
+    tr = trainer(tmp_path, **cfg)
+    rng = np.random.default_rng(5)
+
+    def batch():
+        # the UNet's sample size, (4, 32), at the VAE's factor 2: the
+        # condition's resized mask is made for it
+        images = rng.standard_normal((2, 8, 64, 2)).astype(np.float32)
+        mask = -np.ones((2, 8, 64, 1), np.float32)
+        mask[:, :, :8] = 1.0
+        return {"jpg": images, "inpainting_mask": mask,
+                "masked_image": np.where(mask > 0, -1.0, images)}
+
+    tr.fit((batch() for _ in range(2)), log_every=50)
+    ring = spans()
+    encodes = [s for s in ring if s.name == "encode"]
+    assert len(encodes) == 2
+    for enc in encodes:
+        kids = children(ring, enc)
+        assert [s.name for s in kids] == (
+            ["condition"] if mode == "inpainting" else [])
+        assert all(enc.start_ns <= s.start_ns <= s.end_ns <= enc.end_ns
+                   for s in kids)
+
+
+def test_an_observer_sees_the_spans_of_its_own_thread():
+    """`observe_spans`: each span's start and end on the observing thread,
+    nested spans inside out; another thread's spans and spans after the
+    block are not seen."""
+    seen = []
+    other = threading.Thread(target=lambda: step_annotation("elsewhere")
+                             .__enter__().__exit__(None, None, None))
+    with profiling.observe_spans(lambda name, entering: seen.append(
+            (name, entering))):
+        with step_annotation("outer"):
+            with step_annotation("inner"):
+                pass
+            other.start()
+            other.join(5)
+    with step_annotation("after"):
+        pass
+    assert not other.is_alive()
+    assert seen == [("outer", True), ("inner", True), ("inner", False),
+                    ("outer", False)]
+    assert {s.name for s in spans()} == {"outer", "inner", "elsewhere",
+                                         "after"}
 
 
 def test_micro_batches_and_the_loader_wait(tmp_path):
@@ -517,3 +577,47 @@ def test_vae_gan_device_readers(name):
     assert read(dict(TRAIN_RECORD, device_ms_by_span={"(none)": 5.0}),
                 {}) is None
     assert read(SAMPLING_RECORD, {}) is None
+
+
+# -- device time by phase of a replayed graph --------------------------------
+
+def test_graph_phases_split_replays_by_the_captures_counts():
+    """perfbench/graph_phases.py on planted operations: two replays of a
+    graph of 5 device operations (correlation ids 7 and 8, listed out of
+    order) split by the capture's counts, nested phases each whole; an
+    operation of another launch (9) is left out, and so is a replay that
+    lost an operation; no whole replay, no phases or no launch read
+    None."""
+    from perfbench import graph_phases
+    phases = [("condition", 1, 3), ("encode", 0, 3), ("forward", 3, 5)]
+    ops = [(100, 150, 7), (0, 10, 7), (30, 60, 7), (10, 30, 7), (60, 100, 7),
+           (200, 205, 9), (306, 310, 8), (300, 301, 8), (303, 306, 8),
+           (301, 303, 8), (310, 315, 8)]
+    got = graph_phases.split(ops, {7, 8}, 5, phases)
+    assert got["replays"] == 2
+    assert got["ms"] == pytest.approx({"condition": (20 + 30 + 2 + 3) / 1e6,
+                                       "encode": (60 + 6) / 1e6,
+                                       "forward": (90 + 9) / 1e6})
+    lost = graph_phases.split(ops[:-1], {7, 8}, 5, phases)
+    assert lost["replays"] == 1
+    assert lost["ms"] == pytest.approx({"condition": 50 / 1e6,
+                                        "encode": 60 / 1e6,
+                                        "forward": 90 / 1e6})
+    assert graph_phases.split(ops, {7, 8}, 6, phases) is None
+    assert graph_phases.split(ops, {7, 8}, 5, []) is None
+    assert graph_phases.split(ops, set(), 5, phases) is None
+    assert graph_phases.by_phase(None, object()) is None
+
+
+def test_cond_device_reader():
+    read = reader("cond_device_ms_per_step.inpaint").read
+    split = {"replays": 8, "ms": {"condition": 200.0, "encode": 600.0}}
+    assert read(dict(TRAIN_RECORD, device_ms_by_graph_phase=split),
+                {}) == pytest.approx(25.0)
+    # the parent's record, a step with no condition, another kind of cell
+    assert read(dict(TRAIN_RECORD, device_ms_by_graph_phase=None), {}) \
+        is None
+    assert read(dict(TRAIN_RECORD, device_ms_by_graph_phase={
+        "replays": 8, "ms": {"encode": 1.0}}), {}) is None
+    assert read(dict(SAMPLING_RECORD, device_ms_by_graph_phase=split),
+                {}) is None
